@@ -1,14 +1,15 @@
 """ddm_tpu_torch — the PyTorch/CUDA port of ``ddm_tpu``.
 
-Two-level overlapping Schwarz (restricted additive Schwarz + GenEO coarse
-space + Galerkin coarse correction) under left-preconditioned restarted
-GMRES, written for one NVIDIA H100.  ``ddm_tpu`` (JAX) stays the reference;
+Two-level overlapping Schwarz (restricted additive Schwarz + a GenEO or
+ring-GenEO coarse space + Galerkin coarse correction) under
+left-preconditioned restarted GMRES, written for one NVIDIA H100.  ``ddm_tpu`` (JAX) stays the reference;
 the tests in ``tests/test_torch_*.py`` hold this package against it.
 
 Conventions:
 
-* every function that creates tensors takes an explicit ``device=``; there
-  is no global default device;
+* every function that creates tensors takes an explicit ``device=``; the
+  entry point ``api.setup_problem`` defaults to the CUDA card and raises
+  without CUDA — the CPU runs only when asked for;
 * every floating-point tensor is explicitly float64 unless a double-single
   (float32 hi/lo) pair is meant;
 * batches are written out as a leading subdomain dimension, loops are

@@ -3,7 +3,8 @@
 Counterpart of ``ddm_tpu/api.py`` (reference: the example drivers,
 examples/poisson.cc, pdelab_example.cc): grid -> discretization -> topology
 -> POU -> preconditioners -> Krylov solve from one config tree with the
-reference's key names, on an explicit ``device``.
+reference's key names.  The problem lives on the CUDA card unless the
+caller passes ``device="cpu"``; without CUDA, leaving ``device`` out raises.
 """
 
 from __future__ import annotations
@@ -68,15 +69,27 @@ def make_grid(ptree: ParamTree, dim: int = 2):
     return structured_grid((gs,) * dim)
 
 
+def default_device() -> torch.device:
+    """The current CUDA device; raises when CUDA is not available — the
+    port never falls back to the CPU unless asked."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run on the CPU"
+        )
+    return torch.device("cuda", torch.cuda.current_device())
+
+
 def setup_problem(
     ptree: ParamTree | None = None,
     problem=None,
     grid=None,
     n_sub: int | None = None,
     parts: tuple[int, ...] | None = None,
-    device="cpu",
+    device=None,
 ) -> DDMProblem:
-    device = torch.device(device)
+    """Grid, discretization, topology and POU per config, on ``device``
+    (default: the CUDA card, see :func:`default_device`)."""
+    device = default_device() if device is None else torch.device(device)
     ptree = ptree or default_ptree()
     problem = problem or problems_mod.PROBLEMS[ptree.get("problem", "simple")]()
     with scoped("Setup", "grid (host)"):

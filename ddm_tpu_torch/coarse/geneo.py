@@ -34,35 +34,55 @@ from ..precond.extract import gather_subdomain
 from .basis import CoarseBasis, finalize_basis
 
 
+def _stamp_sum(p, dof_mask) -> torch.Tensor:
+    """Dense (n_sub, n_pad, n_pad) sum of the element matrices fully inside
+    each subdomain (or inside its ``dof_mask`` region, host bool
+    (n_sub, n_pad)), in the variables of ``p.A`` (equilibration applied)."""
+    disc, topo, device = p.disc, p.topo, p.device
+    (dofs, Ke), = disc.neumann_stamps()
+    se, sl = subdomain_stamp_lists(dofs, topo, dof_mask=dof_mask)
+    plan = neumann_plan(se, sl, dofs.shape[0], topo.n_pad, device)
+    A = neumann_dense(Ke, plan, topo.n_sub, topo.n_pad)
+    if p.scale is not None:
+        sub2glob = torch.as_tensor(topo.sub2glob.astype(np.int64), device=device)
+        A = scale_matrix_with_pou(A, gather_subdomain(p.scale, sub2glob))
+    return A
+
+
+def dirichlet_mask_sub(p) -> torch.Tensor:
+    """(n_sub, n_pad) bool on ``p.device``: the subdomain Dirichlet masks."""
+    topo = p.topo
+    sub2glob = torch.as_tensor(topo.sub2glob.astype(np.int64), device=p.device)
+    dmask = gather_subdomain(p.disc.dirichlet_mask.to(torch.float64),
+                             sub2glob) > 0
+    return dmask & torch.as_tensor(topo.valid, device=p.device)
+
+
 def neumann_matrices(p):
     """(A_neu, B_neu) dense batches for DDMProblem ``p``, in the same
     (optionally equilibrated) variables as ``p.A``; B_neu is the Neumann
     matrix of the overlap region (dofs with boundary distance <=
     2*overlap, reference NeumannRegion::Overlap)."""
-    disc, topo, device = p.disc, p.topo, p.device
-    with scoped("Eigensolver", "assemble Neumann", device):
-        (dofs, Ke), = disc.neumann_stamps()
-        n_e = dofs.shape[0]
-        sub2glob = torch.as_tensor(topo.sub2glob.astype(np.int64), device=device)
-        valid = torch.as_tensor(topo.valid, device=device)
-        ovlp_mask = topo.bdist <= 2 * topo.overlap
-        mats = []
-        for mask in (None, ovlp_mask):
-            se, sl = subdomain_stamp_lists(dofs, topo, dof_mask=mask)
-            plan = neumann_plan(se, sl, n_e, topo.n_pad, device)
-            mats.append(neumann_dense(Ke, plan, topo.n_sub, topo.n_pad))
-        A_neu, B_neu = mats
-        if p.scale is not None:
-            s_sub = gather_subdomain(p.scale, sub2glob)
-            A_neu = scale_matrix_with_pou(A_neu, s_sub)
-            B_neu = scale_matrix_with_pou(B_neu, s_sub)
-        dmask_sub = gather_subdomain(
-            disc.dirichlet_mask.to(torch.float64), sub2glob
-        ) > 0
+    topo = p.topo
+    with scoped("Eigensolver", "assemble Neumann", p.device):
+        A_neu = _stamp_sum(p, None)
+        B_neu = _stamp_sum(p, topo.bdist <= 2 * topo.overlap)
+        dmask_sub = dirichlet_mask_sub(p)
+        valid = torch.as_tensor(topo.valid, device=p.device)
         A_neu = eliminate_dirichlet_dense(A_neu, dmask_sub,
                                           unit_diag_padding=~valid)
         B_neu = eliminate_dirichlet_dense(B_neu, dmask_sub)
     return A_neu, B_neu
+
+
+def region_neumann(p, dof_mask) -> torch.Tensor:
+    """Neumann matrix of a sub-region: the element stamps fully inside the
+    per-subdomain dof mask (host bool (n_sub, n_pad)), kept at full padded
+    size with zeros outside the region, Dirichlet rows/cols eliminated
+    (reference: the ring assembly path, examples/pdelab_helper.hh:343-396;
+    the JAX package's ``method="sum"``)."""
+    A = _stamp_sum(p, np.asarray(dof_mask, bool))
+    return eliminate_dirichlet_dense(A, dirichlet_mask_sub(p))
 
 
 def geneo_coarse_space(p, ptree: ParamTree) -> CoarseBasis:

@@ -69,8 +69,8 @@ def topology_from_numpy(sub2glob, valid, bdist, boundary, overlap: int,
 
 def problem_from_numpy(
     colsT, valsT, rhs, g, scale, pou, sub2glob, valid, bdist, boundary,
-    dualT, overlap: int, ptree: ParamTree | None = None, disc=None,
-    device="cpu",
+    dualT, overlap: int, *, device, ptree: ParamTree | None = None,
+    disc=None,
 ) -> DDMProblem:
     """DDMProblem from the JAX package's (slot-major) ELL operator, vectors
     and topology arrays.  ``colsT``/``valsT`` (m, n) become the row-major
@@ -93,7 +93,7 @@ def problem_from_numpy(
 
 def schwarz_from_numpy(
     sub2glob, valid, pou, dualT, *, chol=None, inv=None, inv_hi=None,
-    inv_lo=None, sub_vals=None, sub_cols=None, steps: int = 0, device="cpu",
+    inv_lo=None, sub_vals=None, sub_cols=None, steps: int = 0, device,
 ) -> SchwarzPreconditioner:
     """Schwarz preconditioner over given subdomain factors: Cholesky
     factors ``chol``, an f64 inverse ``inv``, or a double-single inverse
@@ -118,15 +118,15 @@ def schwarz_from_numpy(
     )
 
 
-def basis_from_numpy(V, active, device="cpu") -> CoarseBasis:
+def basis_from_numpy(V, active, *, device) -> CoarseBasis:
     return CoarseBasis(
         V=_f64(V, device),
         active=torch.tensor(np.asarray(active, bool), device=device),
     )
 
 
-def galerkin_from_numpy(E, V, active, sub2glob, dualT, refine: int = 2,
-                        device="cpu") -> GalerkinPreconditioner:
+def galerkin_from_numpy(E, V, active, sub2glob, dualT, refine: int = 2, *,
+                        device) -> GalerkinPreconditioner:
     """Galerkin correction over a given coarse matrix ``E`` (factored here
     by Cholesky) and basis ``V``/``active``."""
     E_t = _f64(E, device)

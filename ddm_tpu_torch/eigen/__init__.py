@@ -8,11 +8,14 @@ from .params import EigensolverParams  # noqa: F401
 _DENSE_NAMES = {"spectra", "dense", "auto"}
 
 
-def solve_gevp(A, C, params: EigensolverParams):
+def solve_gevp(A, C, params: EigensolverParams, spd: bool = True):
     """Solve the batched SPD pencil A v = lambda C v, keeping the smallest
     eigenpairs per ``params``.  Returns (lam, V, active) with the
     (n_sub, params.max_kept) layout.  ``auto`` is dense: the TPU package's
-    dense/LOBPCG crossover is at p = 2048, above every ported case."""
+    dense/LOBPCG crossover is at p = 2048, above every ported case.
+    ``spd=False`` (the indefinite DG pencils) is not ported and raises."""
+    if not spd:
+        raise NotImplementedError("indefinite (spd=False) pencils are not ported")
     if params.type.lower() not in _DENSE_NAMES:
         raise ValueError(f"eigensolver type '{params.type}' is not ported")
     return solve_gevp_dense(A, C, params)

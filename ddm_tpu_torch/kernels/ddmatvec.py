@@ -3,8 +3,10 @@ plain PyTorch version.
 
 Replaces the Pallas TPU kernel ``ddm_tpu/kernels/ddmatvec.py:dd_matvec_pallas``
 and sits where the TPU package calls ``ddm_tpu/solvers/direct.py:dd_matvec``:
-the apply of the double-single subdomain inverse (``BatchedInverseDD``,
-three calls per Schwarz apply with the default two refinement steps).
+the apply of a double-single inverse (``BatchedInverseDD``): three calls
+per Schwarz apply with the default two refinement steps, at (n_sub, n_pad,
+n_pad), and three per coarse solve under ``coarse_solver.precision = dd``,
+at (1, n_c, n_c).
 
 * :func:`dd_matvec_reference` — the plain version, the TPU package's formula:
   three f32 products combined in f64 (TF32 off).
@@ -19,6 +21,7 @@ three calls per Schwarz apply with the default two refinement steps).
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 
@@ -26,7 +29,7 @@ import torch
 
 
 @contextlib.contextmanager
-def _tf32_off():
+def tf32_off():
     """Full-precision f32 matmuls for the duration (restores the setting)."""
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -47,7 +50,7 @@ def dd_matvec_reference(hi: torch.Tensor, lo: torch.Tensor,
     dh = d.to(torch.float32)
     dl = (d - dh.to(torch.float64)).to(torch.float32)
     eq = "spq,sq->sp"
-    with _tf32_off():
+    with tf32_off():
         y0 = torch.einsum(eq, hi, dh)
         y1 = torch.einsum(eq, lo, dh) + torch.einsum(eq, hi, dl)
     return y0.to(torch.float64) + y1.to(torch.float64)
@@ -59,7 +62,8 @@ def dd_matvec_cuda(hi: torch.Tensor, lo: torch.Tensor,
 
     hi, lo: (n_sub, P, P) float32 contiguous CUDA; d: (n_sub, q) float64
     contiguous CUDA with q <= P.  Returns y (n_sub, q) float64.  Adds one to
-    ``dd_matvec_cuda.launches`` per launch."""
+    ``dd_matvec_cuda.shapes[(n_sub, P, q)]`` per launch; the total is the
+    sum of its values."""
     if not (hi.is_cuda and lo.is_cuda and d.is_cuda):
         raise ValueError("dd_matvec_cuda needs CUDA tensors")
     if not (hi.device == lo.device == d.device):
@@ -86,11 +90,11 @@ def dd_matvec_cuda(hi: torch.Tensor, lo: torch.Tensor,
                  n_sub, P, q, stream)
     if err != 0:
         raise RuntimeError(f"dd_matvec launch failed: CUDA error {err}")
-    dd_matvec_cuda.launches += 1
+    dd_matvec_cuda.shapes[(n_sub, P, q)] += 1
     return y
 
 
-dd_matvec_cuda.launches = 0
+dd_matvec_cuda.shapes = collections.Counter()
 
 
 def _launcher():

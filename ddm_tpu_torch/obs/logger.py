@@ -1,6 +1,7 @@
 """Event timing (observability layer), after ``ddm_tpu/obs/logger.py``.
 
-Families -> events with start/end pairs, a nesting guard that rejects a
+A ``warn`` message function (the JAX package's ``logger.warn``), and
+families -> events with start/end pairs, a nesting guard that rejects a
 double start, scoped timing and a total/mean/min/max report (reference:
 dune/ddm/logger.hh ``Logger`` / ``ScopedLog``).  CUDA work is asynchronous,
 so a scope given a CUDA device synchronizes it before it stops the clock:
@@ -9,6 +10,7 @@ phase times then hold the device work launched inside them.
 
 from __future__ import annotations
 
+import sys
 import time
 from dataclasses import dataclass, field
 
@@ -108,3 +110,9 @@ class ScopedLog:
 
 def scoped(family: str, name: str, device=None) -> ScopedLog:
     return ScopedLog(Logger.get().register_or_get_event(family, name), device)
+
+
+def warn(fmt: str, *args) -> None:
+    """Print a ``{}``-formatted warning to stderr (the JAX package's
+    ``logger.warn``)."""
+    print(f"[warn] {fmt.format(*args) if args else fmt}", file=sys.stderr)

@@ -9,7 +9,9 @@ the overlapping subdomain pairs only (``pairs`` method),
 exact for bases that vanish on subdomain boundaries (every POU-finalized
 space does).  It is factored once; the apply restricts with V, solves the
 coarse system with ``refine`` steps of iterative refinement against the
-stored E, prolongs and scatter-adds in fixed order.
+stored E, prolongs and scatter-adds in fixed order.  With
+``coarse_solver.precision = dd`` an explicit coarse inverse is stored as a
+double-single pair and applied through ``kernels/ddmatvec.py``.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from ..config import ParamTree
 from ..core.indexmaps import DDMTopology, dual_scatter_map, extraction_map
 from ..core.sparse import SparseELL
 from ..obs.logger import scoped
-from ..solvers.direct import factor_batched
+from ..solvers.direct import BatchedInverse, factor_batched, pack_inverse
 from .extract import extract_subdomain_dense, gather_subdomain, scatter_add_subdomain
 
 
@@ -84,6 +86,7 @@ class GalerkinPreconditioner:
     dualT: torch.Tensor  # (K, n) gather-dual of the scatter
     E_mat: torch.Tensor | None = None  # kept for iterative refinement
     refine: int = 0
+    applies: int = 0  # number of apply() calls so far
 
     def _coarse_solve(self, rhs: torch.Tensor) -> torch.Tensor:
         y = self.coarse.solve(rhs[None])[0]
@@ -92,6 +95,7 @@ class GalerkinPreconditioner:
         return y
 
     def apply(self, d: torch.Tensor) -> torch.Tensor:
+        self.applies += 1
         n_sub, nev, _ = self.V.shape
         d_sub = gather_subdomain(d, self.sub2glob)
         alpha = (self.V @ d_sub[:, :, None])[:, :, 0]  # restriction
@@ -112,9 +116,13 @@ def build_galerkin(
     with ``ptree`` None, cholesky — the TPU package's LU default is not
     ported), ``refine`` (iterative-refinement steps per coarse solve,
     default 2).
+    ``precision`` = f64|dd: dd stores an explicit coarse inverse
+    (``BatchedInverse``, the CUDA default) as a double-single pair applied by
+    the ``dd_matvec`` kernel — 1 + ``refine`` launches per coarse solve; the
+    CPU keeps Cholesky factors, where the key changes nothing, as in the JAX
+    package on the CPU.
     The TPU knobs ``newton_rtol`` and ``construction`` are accepted and
-    ignored; ``precision = dd`` (the double-single coarse solve) is not
-    ported."""
+    ignored."""
     ptree = ptree or ParamTree({subtree_name: {"type": "cholesky"}})
     sub = ptree.sub(subtree_name)
     if "type" not in sub:
@@ -122,8 +130,9 @@ def build_galerkin(
             f"You must specify the solver in the subtree {subtree_name} "
             "using the key 'type'"
         )
-    if sub.get("precision", "f64") != "f64":
-        raise NotImplementedError("the double-single coarse solve is not ported")
+    precision = sub.get("precision", "f64")
+    if precision not in ("f64", "dd"):
+        raise ValueError(f"coarse precision '{precision}' is not ported")
     if sub.get("matrix_method", "pairs") != "pairs" or not basis.boundary_vanishing:
         raise NotImplementedError("only the pairs coarse matrix is ported")
     device = ell.vals.device
@@ -140,6 +149,8 @@ def build_galerkin(
         E = _mask_inactive(E, basis.active)
     with scoped("GalerkinPrec", "factor A0", device):
         coarse = factor_batched(E[None], sub.get("type"))
+        if precision == "dd" and isinstance(coarse, BatchedInverse):
+            coarse = pack_inverse(coarse.inv, "dd")
     refine = int(sub.get("refine", 2))
     return GalerkinPreconditioner(
         sub2glob=s2g, V=basis.V, active=basis.active, coarse=coarse,

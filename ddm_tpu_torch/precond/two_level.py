@@ -3,32 +3,50 @@
 Counterpart of ``ddm_tpu/precond/two_level.py`` (reference:
 TwoLevelSchwarzPreconditioner, examples/pdelab_schwarz.hh:26-205): the
 fine-level Schwarz preconditioner plus a coarse space plus the Galerkin
-correction, combined additively.  Only the ``geneo`` coarse space is ported.
+correction, combined additively.  The ``geneo`` and ``geneo_ring`` coarse
+spaces are ported.
 """
 
 from __future__ import annotations
 
+from ..config import ParamTree
 from .combined import build_combined
 from .galerkin import build_galerkin
 from .schwarz import build_schwarz
 
 
-def build_two_level(p):
-    """p: api.DDMProblem.  Returns the combined two-level preconditioner.
+def build_coarse_space(p, cs_type: str, ptree: ParamTree, fine=None):
+    """Dispatch on ``coarsespace.type`` (pdelab_schwarz.hh:93-141)."""
+    if cs_type == "geneo":
+        from ..coarse.geneo import geneo_coarse_space
 
-    The coarse basis is built before the fine factorization, as in the TPU
-    package, so peak memory holds either the GEVP pencils or the fine
-    inverse, not both."""
+        return geneo_coarse_space(p, ptree)
+    if cs_type == "geneo_ring":
+        from ..coarse.ring import geneo_ring_coarse_space
+
+        # the ring extension may reuse the fine level's explicit inverse
+        return geneo_ring_coarse_space(p, ptree, fine=fine)
+    raise NotImplementedError(f"coarse space '{cs_type}' is not ported")
+
+
+# coarse spaces whose construction reuses the fine level's explicit inverse:
+# the fine level is built first for them; every other coarse basis is built
+# before the fine factorization, so peak memory holds either the GEVP
+# pencils or the fine inverse, not both
+_CS_NEEDS_FINE = {"geneo_ring"}
+
+
+def build_two_level(p):
+    """p: api.DDMProblem.  Returns the combined two-level preconditioner."""
     ptree = p.ptree
     cs_type = ptree.sub("coarsespace").get("type", "geneo")
     if cs_type == "none":
         return build_schwarz(p.A, p.topo, p.pou, ptree)
-    if cs_type != "geneo":
-        raise NotImplementedError(f"coarse space '{cs_type}' is not ported")
-    from ..coarse.geneo import geneo_coarse_space
-
-    basis = geneo_coarse_space(p, ptree)
+    fine = (build_schwarz(p.A, p.topo, p.pou, ptree)
+            if cs_type in _CS_NEEDS_FINE else None)
+    basis = build_coarse_space(p, cs_type, ptree, fine=fine)
     coarse_ptree = ptree if "coarse_solver.type" in ptree else None
     coarse = build_galerkin(p.A, p.topo, basis, coarse_ptree)
-    fine = build_schwarz(p.A, p.topo, p.pou, ptree)
+    if fine is None:
+        fine = build_schwarz(p.A, p.topo, p.pou, ptree)
     return build_combined([fine, coarse], ptree)

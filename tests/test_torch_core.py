@@ -37,7 +37,7 @@ def problems_32():
     pj = japi.setup_problem(_pt(japi, 32), problem=jproblems.islands(),
                             parts=(4, 4))
     pt = tapi.setup_problem(_pt(tapi, 32), problem=tproblems.islands(),
-                            parts=(4, 4))
+                            parts=(4, 4), device="cpu")
     return pj, pt
 
 
@@ -80,7 +80,7 @@ def test_sparse_mv_matches_jax(problems_32, k):
         np.asarray(pj.A.colsT), np.asarray(pj.A.valsT), np.asarray(pj.rhs),
         np.asarray(pj.g), None, pj.pou, pj.topo.sub2glob, pj.topo.valid,
         pj.topo.bdist, pj.topo.boundary, jidx.dual_scatter_map(pj.topo),
-        overlap=2,
+        overlap=2, device="cpu",
     ).A
     rng = np.random.default_rng(k)
     x = rng.standard_normal((ell.n, k) if k else ell.n)

@@ -69,13 +69,17 @@ def test_reference_matches_jax(n_sub, P, q):
     np.testing.assert_array_equal(lo.numpy(), np.asarray(lj))
 
 
+def _launches():
+    return sum(ddmatvec.dd_matvec_cuda.shapes.values())
+
+
 def test_dispatch_cpu_takes_reference_and_cuda_wrapper_rejects_cpu():
     A, d = _inputs(2, 64, 50, seed=3)
     hi, lo = dd_split(torch.as_tensor(A))
     dt = torch.as_tensor(d)
-    before = ddmatvec.dd_matvec_cuda.launches
+    before = _launches()
     y = ddmatvec.dd_matvec(hi, lo, dt)
-    assert ddmatvec.dd_matvec_cuda.launches == before
+    assert _launches() == before
     torch.testing.assert_close(
         y, ddmatvec.dd_matvec_reference(hi, lo, dt), rtol=0, atol=0
     )
@@ -98,10 +102,10 @@ def test_cuda_kernel_matches_reference(cuda_device, n_sub, P, q):
     A, d = _inputs(n_sub, P, q, seed=P)
     hi, lo = dd_split(torch.as_tensor(A, device=cuda_device))
     dt = torch.as_tensor(d, device=cuda_device)
-    before = ddmatvec.dd_matvec_cuda.launches
+    before = _launches()
     y = ddmatvec.dd_matvec(hi, lo, dt)
     torch.cuda.synchronize()
-    assert ddmatvec.dd_matvec_cuda.launches == before + 1
+    assert _launches() == before + 1
     ref = ddmatvec.dd_matvec_reference(hi, lo, dt)
     truth = ((hi.double() + lo.double())[:, :q, :q] @ dt[..., None])[..., 0]
     assert _relerr(y.cpu(), ref.cpu()) < 1e-6
@@ -142,12 +146,49 @@ def test_cuda_slice_matches_cpu_f64(cuda_device):
         p = api.setup_problem(pt, problem=problems.islands(), parts=(4, 4),
                               device=device)
         M = api.build_preconditioner(p)
-        ddmatvec.dd_matvec_cuda.launches = 0
+        ddmatvec.dd_matvec_cuda.shapes.clear()
         res = api.solve(p, M)
-        return res, api.solution(p, res).cpu(), ddmatvec.dd_matvec_cuda.launches, M
+        return res, api.solution(p, res).cpu(), _launches(), M
 
     r_gpu, u_gpu, launches, M = run(cuda_device, "dd")
     r_cpu, u_cpu, _, _ = run("cpu", "f64")
     assert r_gpu.converged and abs(r_gpu.iterations - r_cpu.iterations) <= 2
     assert _relerr(u_gpu, u_cpu) < 1e-6
     assert launches == 3 * M.precs[0].applies > 0
+
+
+@pytest.mark.cuda
+def test_cuda_ring_slice_matches_cpu_f64(cuda_device):
+    """The geneo_ring slice at islands 32^2/16 with double-single fine and
+    coarse inverses on the card against the exact f64 slice on the CPU:
+    iterations within 2, solutions within 1e-6, and three kernel launches
+    per fine-level and per coarse-level apply, at their two shapes."""
+    from ddm_tpu_torch import api
+    from ddm_tpu_torch.fem import problems
+
+    def run(device, precision):
+        pt = api.default_ptree()
+        pt["gridsize"] = 32
+        pt["solver.reduction"] = 1e-8
+        pt["solver.verify"] = True
+        pt["coarsespace.type"] = "geneo_ring"
+        pt["geneo_ring.eigensolver.nev"] = 8
+        pt["coarse_solver.type"] = "cholesky"
+        pt["schwarz.subdomain_solver.precision"] = precision
+        pt["coarse_solver.precision"] = precision
+        p = api.setup_problem(pt, problem=problems.islands(), parts=(4, 4),
+                              device=device)
+        M = api.build_preconditioner(p)
+        ddmatvec.dd_matvec_cuda.shapes.clear()
+        res = api.solve(p, M)
+        return res, api.solution(p, res).cpu(), dict(ddmatvec.dd_matvec_cuda.shapes), M
+
+    r_gpu, u_gpu, shapes, M = run(cuda_device, "dd")
+    r_cpu, u_cpu, _, _ = run("cpu", "f64")
+    assert r_gpu.converged and abs(r_gpu.iterations - r_cpu.iterations) <= 2
+    assert _relerr(u_gpu, u_cpu) < 1e-6
+    fine, coarse = M.precs
+    n_pad, n_c = fine.sub2glob.shape[1], coarse.V.shape[0] * coarse.V.shape[1]
+    assert shapes == {(16, n_pad, n_pad): 3 * fine.applies,
+                      (1, n_c, n_c): 3 * coarse.applies}
+    assert fine.applies == coarse.applies > 0

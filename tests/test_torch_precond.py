@@ -83,7 +83,7 @@ def state():
         np.asarray(pj.A.colsT), np.asarray(pj.A.valsT), np.asarray(pj.rhs),
         np.asarray(pj.g), np.asarray(pj.scale), pj.pou, topo.sub2glob,
         topo.valid, topo.bdist, topo.boundary, s["dualT"],
-        overlap=topo.overlap, ptree=_ptree(tapi), disc=disc,
+        overlap=topo.overlap, device="cpu", ptree=_ptree(tapi), disc=disc,
     )
     s["d"] = np.random.default_rng(7).standard_normal(topo.n_glob)
     return s
@@ -99,7 +99,7 @@ def test_schwarz_f64_apply_matches_jax(state, origin, tol):
     if origin == "carried":
         M = convert.schwarz_from_numpy(
             p.topo.sub2glob, p.topo.valid, p.pou, state["dualT"],
-            chol=np.asarray(state["sch_f64"].factors.chol))
+            chol=np.asarray(state["sch_f64"].factors.chol), device="cpu")
     else:
         M = build_schwarz(p.A, p.topo, p.pou, p.ptree)
     y = M.apply(torch.as_tensor(state["d"])).numpy()
@@ -116,7 +116,7 @@ def test_schwarz_dd_apply_matches_jax(state, origin):
             p.topo.sub2glob, p.topo.valid, p.pou, state["dualT"],
             inv_hi=np.asarray(fj.inv_hi), inv_lo=np.asarray(fj.inv_lo),
             sub_vals=np.asarray(fj.sub_vals), sub_cols=np.asarray(fj.sub_cols),
-            steps=fj.steps,
+            steps=fj.steps, device="cpu",
         )
     else:
         M = build_schwarz(p.A, p.topo, p.pou, _ptree(tapi, "dd"))
@@ -151,7 +151,8 @@ def test_gevp_matches_jax(state):
 def test_coarse_matrix_matches_jax(state):
     """Pairs coarse matrix over the JAX package's GenEO basis."""
     p, basis = state["pt"], state["basis"]
-    tb = convert.basis_from_numpy(np.asarray(basis.V), np.asarray(basis.active))
+    tb = convert.basis_from_numpy(np.asarray(basis.V), np.asarray(basis.active),
+                                  device="cpu")
     from ddm_tpu_torch.core.indexmaps import extraction_map
 
     lc = torch.as_tensor(extraction_map(p.topo, p.A.cols.numpy()).astype(np.int64))
@@ -166,7 +167,7 @@ def test_galerkin_apply_matches_jax(state):
     gal, p = state["gal"], state["pt"]
     G = convert.galerkin_from_numpy(
         np.asarray(gal.E_mat), np.asarray(gal.V), np.asarray(gal.active),
-        p.topo.sub2glob, state["dualT"], refine=gal.refine,
+        p.topo.sub2glob, state["dualT"], refine=gal.refine, device="cpu",
     )
     y = G.apply(torch.as_tensor(state["d"])).numpy()
     assert _relerr(y, gal.apply(jnp.asarray(state["d"]))) < 1e-10

@@ -53,7 +53,7 @@ def runs():
         u_j = np.asarray(japi.solution(pj, rj))
 
         pt = tapi.setup_problem(_ptree(tapi, prec), problem=tproblems.islands(),
-                                parts=(4, 4))
+                                parts=(4, 4), device="cpu")
         rt = tapi.solve(pt)
         tr_t = float(torch.linalg.norm(pt.A.mv(rt.x) - pt.rhs)
                      / torch.linalg.norm(pt.rhs))
@@ -90,14 +90,16 @@ def test_one_level_solvers_match_jax(solver, schwarz):
     Schwarz) and under GMRES with restart 20, so several restart cycles
     run: the same iteration count as the JAX package, both converged."""
     its = []
-    for api, problems in ((japi, jproblems), (tapi, tproblems)):
+    for api, problems, dev in ((japi, jproblems, {}),
+                               (tapi, tproblems, {"device": "cpu"})):
         pt = api.default_ptree()
         pt["gridsize"] = 32
         pt["solver.type"] = solver
         pt["solver.reduction"] = 1e-8
         pt["solver.restart"] = 20
         pt["schwarz.type"] = schwarz
-        p = api.setup_problem(pt, problem=problems.islands(), parts=(4, 4))
+        p = api.setup_problem(pt, problem=problems.islands(), parts=(4, 4),
+                              **dev)
         res = api.solve(p)
         assert bool(res.converged)
         its.append(int(res.iterations))
