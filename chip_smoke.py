@@ -10,8 +10,12 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
 2. build — compiles every hand-written kernel of the main paths from
    ``ddm_tpu_torch/csrc`` with nvcc and prints the build time;
 3. kernel vs plain — ``dd_matvec`` against its plain PyTorch version at
-   (4, 256, 256) q=200, (2, 640, 640), a ragged (3, 177, 177) and the coarse
-   shape (1, 2048, 2048);
+   (4, 256, 256) q=200, (2, 640, 640), a ragged (3, 177, 177), a ragged
+   one-matrix (1, 1001, 1001), small matrices whose plans take clusters of
+   3, 5, 6 and 7 blocks, and the coarse shape (1, 2048, 2048), each with
+   the launch plan it took; then two launches at the coarse shape,
+   which must give the same bits (the column split's cluster reduction runs
+   in a fixed order);
 4. small-input references at islands 32^2 / 16 subdomains: the geneo dd
    slice and the geneo_ring (R-dd) slice on the card, each against the
    exact f64 slice on the CPU (iterations within 2, solutions within 1e-6);
@@ -31,7 +35,10 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
 
 6. the f64 and dd fine-level apply times, and the kernel against its plain
    version at both of R-dd's shapes, on R-dd's own inverses, with
-   CUDA-event timings.
+   CUDA-event timings, each with its launch plan, its share of the bound
+   and, as a reference line over the same bytes, the f64 cuBLAS matvec of
+   the f64 inverse hi + lo (``f64_library_ms``; it computes a different
+   function, so ``library_ms`` stays null).
 
 Then one JSON line of per-kernel results, the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}.
@@ -44,6 +51,13 @@ per entry point (``setup_problem``, ``build_preconditioner``, ``solve``),
 each printed with its wall seconds, device-busy seconds (the union of the
 card's kernel and copy intervals), idle share 1 - busy / wall and the
 device ops that took the most time.
+
+    python3 chip_smoke.py --plans
+
+times the kernel at R-dd's two shapes on random inputs under several
+launch plans (rows per block x column chunks), the default plan first,
+each checked against the f64 product; the coarse shape with the L2 flushed
+by a write pass (as in phase 6) and by a read pass.
 """
 
 import json
@@ -197,20 +211,32 @@ def bound_ms(n_sub, q):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def f64_product(hi, lo, d):
+    q = d.shape[1]
+    return ((hi[:, :q, :q].double() + lo[:, :q, :q].double())
+            @ d[..., None])[..., 0]
+
+
+def plan_str(pl):
+    cluster = f"clusters of {pl.chunks}" if pl.chunks > 1 else "no cluster"
+    return (f"{pl.rows} rows x {pl.chunks} chunk(s) of {pl.cols} cols, "
+            f"{cluster}, {pl.blocks} blocks")
+
+
 def check_kernel(ddmatvec, hi, lo, d, label):
     """Kernel against its plain version and the f64 product of the same
-    hi/lo; returns the largest absolute difference from the plain version."""
+    hi/lo; returns the largest absolute difference from the plain version
+    and the launch plan the kernel took."""
     y = ddmatvec.dd_matvec_cuda(hi, lo, d)
     ref = ddmatvec.dd_matvec_reference(hi, lo, d)
-    q = d.shape[1]
-    truth = ((hi[:, :q, :q].double() + lo[:, :q, :q].double())
-             @ d[..., None])[..., 0]
-    e_plain, e_f64 = rel_err(y, ref), rel_err(y, truth)
-    print(f"kernel {label} {tuple(hi.shape)} q={q}: rel err vs plain "
-          f"{e_plain:.3e}, vs f64 {e_f64:.3e}", flush=True)
+    n_sub, q = d.shape
+    pl = ddmatvec.plan(n_sub, q, ddmatvec.sm_count(d.device))
+    e_plain, e_f64 = rel_err(y, ref), rel_err(y, f64_product(hi, lo, d))
+    print(f"kernel {label} {tuple(hi.shape)} q={q} [{plan_str(pl)}]: rel err "
+          f"vs plain {e_plain:.3e}, vs f64 {e_f64:.3e}", flush=True)
     if not (e_plain <= KERNEL_VS_PLAIN_TOL and e_f64 <= KERNEL_VS_F64_TOL):
         fail(f"dd_matvec kernel disagrees with its plain version ({label})")
-    return float((y - ref).abs().max())
+    return float((y - ref).abs().max()), pl
 
 
 def check_path(path, run, r):
@@ -308,6 +334,71 @@ def profile_paths(paths):
         del p, M, res
 
 
+# (rows, chunks) per shape for --plans; each list's plan() is timed first
+SWEEP = {(256, 848): [(64, 1), (32, 1), (128, 1), (64, 2)],
+         (1, 2048): [(64, 1), (16, 1), (8, 1), (32, 2), (16, 2), (8, 2),
+                     (64, 4), (16, 4), (8, 4), (64, 8), (32, 8), (16, 8),
+                     (8, 8)]}
+
+
+def sweep_plans():
+    """Time the kernel under the plans of SWEEP at R-dd's two shapes."""
+    from ddm_tpu_torch.kernels import build, ddmatvec
+    from ddm_tpu_torch.solvers.direct import dd_split
+
+    dev = torch.device("cuda", 0)
+    build.build("dd_matvec")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    flush_buf = torch.empty(2 * 50 * 2**20, dtype=torch.uint8, device=dev)
+    n_sm = ddmatvec.sm_count(dev)
+
+    def read_flush():  # leaves the L2 full of clean lines
+        flush_buf.max()
+
+    for (n_sub, q), plans in SWEEP.items():
+        hi, lo = dd_split(torch.randn((n_sub, q, q), generator=gen, device=dev,
+                                      dtype=torch.float64))
+        d = torch.randn((n_sub, q), generator=gen, device=dev,
+                        dtype=torch.float64)
+        truth = f64_product(hi, lo, d)
+        b_ms, _ = bound_ms(n_sub, q)
+        default = ddmatvec.plan(n_sub, q, n_sm)
+        tilings = [default] + [t for t in (ddmatvec.tiling(n_sub, q, r, c)
+                                           for r, c in plans) if t != default]
+        for pl in tilings:
+            def fn():  # the C entry point under this plan (not counted)
+                y = torch.empty_like(d)
+                err = ddmatvec._launcher()(
+                    hi.data_ptr(), lo.data_ptr(), d.data_ptr(), y.data_ptr(),
+                    n_sub, q, q, pl.rows, pl.chunks, pl.cols,
+                    torch.cuda.current_stream(dev).cuda_stream)
+                if err != 0:
+                    fail(f"dd_matvec launch failed under {pl}: CUDA error {err}")
+                return y
+            err = rel_err(fn(), truth)
+            if err > KERNEL_VS_F64_TOL:
+                fail(f"plan {pl} disagrees with the f64 product: {err:.3e}")
+            line = f"plan ({n_sub}, {q}, {q}) [{plan_str(pl)}]"
+            if pl == default:
+                line += " (default)"
+            if n_sub == 1:
+                ms = time_ms(fn, reps=50, flush=flush_buf.zero_)
+                ms_r = time_ms(fn, reps=50, flush=read_flush)
+                line += (f": {ms:.4f} ms write-flushed, {ms_r:.4f} ms "
+                         f"read-flushed")
+            else:
+                ms = time_ms(fn)
+                line += f": {ms:.4f} ms"
+            print(f"{line}, {b_ms / ms:.3f} of the {b_ms:.4f} ms bound, rel err "
+                  f"vs f64 {err:.3e}", flush=True)
+        if n_sub == 1:  # what one launch costs under the same flushes
+            y = torch.empty_like(d)
+            ms = time_ms(y.zero_, reps=50, flush=flush_buf.zero_)
+            ms_r = time_ms(y.zero_, reps=50, flush=read_flush)
+            print(f"launch floor: one-block kernel (zero_ of y) {ms:.4f} ms "
+                  f"write-flushed, {ms_r:.4f} ms read-flushed", flush=True)
+
+
 def main():
     # -- 1. device (CUDA checked by the caller) -----------------------------
     from ddm_tpu_torch.kernels import build, ddmatvec
@@ -329,13 +420,20 @@ def main():
     # -- 3. kernel vs plain at the test shapes and the coarse shape ---------
     gen = torch.Generator(device=dev).manual_seed(0)
     for n_sub, P, q in [(4, 256, 200), (2, 640, 640), (3, 177, 177),
-                        (1, 2048, 2048)]:
+                        (1, 1001, 1001), (1, 12, 12), (1, 37, 37), (1, 24, 24),
+                        (1, 100, 100), (1, 2048, 2048)]:
         A = torch.randn((n_sub, P, P), generator=gen, device=dev,
                         dtype=torch.float64)
         hi, lo = dd_split(A)
         d = torch.randn((n_sub, q), generator=gen, device=dev,
                         dtype=torch.float64)
         check_kernel(ddmatvec, hi, lo, d, "random")
+    same = torch.equal(ddmatvec.dd_matvec_cuda(hi, lo, d),
+                       ddmatvec.dd_matvec_cuda(hi, lo, d))
+    print(f"kernel (1, 2048, 2048): two launches bit-identical: {same}",
+          flush=True)
+    if not same:
+        fail("two launches of dd_matvec on the same inputs differ")
     del A, hi, lo, d
 
     # -- 4. small-input references: card vs CPU exact f64 -------------------
@@ -395,21 +493,28 @@ def main():
         n_sub, P, _ = hi.shape
         dv = torch.randn((n_sub, P), generator=gen, device=dev,
                          dtype=torch.float64)
-        abs_err = check_kernel(ddmatvec, hi, lo, dv, f"ring_dd {label}")
+        abs_err, pl = check_kernel(ddmatvec, hi, lo, dv, f"ring_dd {label}")
         # the coarse inverse (33.6 MB at n_c 2048) fits in the 50 MB L2, but
         # the solve reads it after the fine level's 1.47 GB: flush first
         flush = flush_buf.zero_ if label == "coarse" else None
         ms = time_ms(lambda: ddmatvec.dd_matvec_cuda(hi, lo, dv), flush=flush)
         plain_ms = time_ms(lambda: ddmatvec.dd_matvec_reference(hi, lo, dv),
                            flush=flush)
+        inv64 = hi.double() + lo.double()  # the same bytes as hi + lo
+        f64_ms = time_ms(lambda: torch.bmm(inv64, dv[..., None]), flush=flush)
+        del inv64
         b_ms, b_by = bound_ms(n_sub, P)
-        print(f"kernel ring_dd {label} {tuple(hi.shape)}: {ms:.4f} ms vs "
-              f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-              f"{8 * n_sub * P * P / ms / 1e6:.0f} GB/s of hi+lo", flush=True)
+        print(f"kernel ring_dd {label} {tuple(hi.shape)} [{plan_str(pl)}]: "
+              f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}), {b_ms / ms:.3f} of the bound, "
+              f"{8 * n_sub * P * P / ms / 1e6:.0f} GB/s of hi+lo; f64 cuBLAS "
+              f"matvec of hi + lo (reference) {f64_ms:.4f} ms", flush=True)
         entries.append({
             "shape": [n_sub, P, P], "launches": r["shapes"][(n_sub, P, P)],
             "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "share_of_bound": b_ms / ms, "f64_library_ms": f64_ms,
+            "plan": pl._asdict(),
         })
 
     # top-level numbers: this slice's main path (R-dd) at its fine shape;
@@ -437,5 +542,7 @@ if __name__ == "__main__":
         sys.exit(1)
     if sys.argv[1:2] == ["--profile"]:
         profile_paths(sys.argv[2:])
+    elif sys.argv[1:2] == ["--plans"]:
+        sweep_plans()
     else:
         main()

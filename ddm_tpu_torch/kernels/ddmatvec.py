@@ -14,6 +14,9 @@ at (1, n_c, n_c).
   one read of hi and lo, f64 accumulation.  It is bound by the 8 bytes read
   per matrix entry (1.47 GB per call at the main path's (256, 848, 848));
   see the source for the design.
+* :func:`plan` — the kernel's launch tiling, from the shape and the card's
+  SM count: rows per block and a column split reduced inside a
+  thread-block cluster, so that small batches fill the card too.
 * :func:`dd_matvec` — the dispatcher: CPU tensors take the plain version,
   CUDA tensors the kernel; anything else raises.  There is no fallback from
   the kernel to the plain version.
@@ -24,8 +27,66 @@ from __future__ import annotations
 import collections
 import contextlib
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
+
+MAX_CLUSTER = 8  # portable thread-block cluster size (csrc: kMaxCluster)
+BLOCKS_PER_SM = 2  # a small batch is split up to this many blocks per SM
+# (rows, chunks) from coarse to fine tiles: alternately double the column
+# chunks and halve the rows per block, down to one row per warp (the
+# kernel's blocks have 8 warps)
+LADDER = ((64, 1), (64, 2), (32, 2), (32, 4), (16, 4), (16, 8), (8, 8))
+
+
+class Plan(NamedTuple):
+    """Tiling of one launch: ``rows`` rows per block, the columns split into
+    ``chunks`` chunks of ``cols`` (the last one clipped to q), reduced in a
+    cluster of ``chunks`` blocks when ``chunks > 1``; ``blocks`` in all."""
+
+    rows: int
+    chunks: int
+    cols: int
+    blocks: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def tiling(n_sub: int, q: int, rows: int, chunks: int) -> Plan:
+    """The plan of ``rows`` rows per block and about ``chunks`` column
+    chunks of whole float4s (fewer when q is small); one chunk spans q."""
+    cols = 4 * _cdiv(q, 4 * chunks)
+    chunks = _cdiv(q, cols)
+    if chunks == 1:
+        cols = q
+    return Plan(rows, chunks, cols, n_sub * _cdiv(q, rows) * chunks)
+
+
+@functools.cache
+def plan(n_sub: int, q: int, n_sm: int) -> Plan:
+    """The launch plan of ``csrc/dd_matvec.cu`` for d (n_sub, q) on a card
+    with ``n_sm`` SMs: the finest step of ``LADDER`` whose grid stays
+    within ``BLOCKS_PER_SM * n_sm`` blocks.  A batch that fills the card
+    keeps 64 rows and one chunk; a small one is split until the next step
+    would pass the limit, so (each step at most doubling the grid) it ends
+    with more than ``n_sm`` blocks unless the ladder runs out first."""
+    limit = BLOCKS_PER_SM * n_sm
+    pl = tiling(n_sub, q, *LADDER[0])
+    for rows, chunks in LADDER[1:]:
+        finer = tiling(n_sub, q, rows, chunks)
+        if finer.blocks > limit:
+            break
+        pl = finer
+    return pl
+
+
+@functools.cache
+def sm_count(device: torch.device) -> int:
+    """The card's SM count, read once per device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 @contextlib.contextmanager
@@ -58,7 +119,8 @@ def dd_matvec_reference(hi: torch.Tensor, lo: torch.Tensor,
 
 def dd_matvec_cuda(hi: torch.Tensor, lo: torch.Tensor,
                    d: torch.Tensor) -> torch.Tensor:
-    """Launch ``csrc/dd_matvec.cu`` on PyTorch's current stream.
+    """Launch ``csrc/dd_matvec.cu`` on PyTorch's current stream, tiled by
+    :func:`plan` for the card.
 
     hi, lo: (n_sub, P, P) float32 contiguous CUDA; d: (n_sub, q) float64
     contiguous CUDA with q <= P.  Returns y (n_sub, q) float64.  Adds one to
@@ -83,11 +145,12 @@ def dd_matvec_cuda(hi: torch.Tensor, lo: torch.Tensor,
         raise ValueError("at most 65535 subdomains per launch")
     q = d.shape[1]
     y = torch.empty((n_sub, q), dtype=torch.float64, device=d.device)
+    pl = plan(n_sub, q, sm_count(d.device))
     fn = _launcher()
     with torch.cuda.device(d.device):
         stream = torch.cuda.current_stream(d.device).cuda_stream
         err = fn(hi.data_ptr(), lo.data_ptr(), d.data_ptr(), y.data_ptr(),
-                 n_sub, P, q, stream)
+                 n_sub, P, q, pl.rows, pl.chunks, pl.cols, stream)
     if err != 0:
         raise RuntimeError(f"dd_matvec launch failed: CUDA error {err}")
     dd_matvec_cuda.shapes[(n_sub, P, q)] += 1
@@ -97,12 +160,15 @@ def dd_matvec_cuda(hi: torch.Tensor, lo: torch.Tensor,
 dd_matvec_cuda.shapes = collections.Counter()
 
 
+@functools.cache
 def _launcher():
+    """The C entry point ``ddm_dd_matvec`` (hi, lo, d, y, n_sub, P, q,
+    rows, chunks, cols, stream) -> cudaError_t, built at first call."""
     from .build import load
 
     fn = load("dd_matvec").ddm_dd_matvec
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     return fn
 
 

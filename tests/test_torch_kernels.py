@@ -24,6 +24,12 @@ torch.set_num_threads(2)
 
 # (n_sub, P, q): the two shapes of tests/test_kernels.py and a ragged P
 SHAPES = [(4, 256, 200), (2, 640, 640), (3, 177, 177)]
+# one-matrix and low-batch shapes, where the launch plan splits the columns
+# (the dd coarse solve's (1, 2048, 2048), a ragged one, and small matrices
+# whose clusters have 3, 5, 6 and 7 blocks): card tests only
+CARD_SHAPES = [(1, 2048, 2048), (1, 1001, 1001), (2, 1536, 1536),
+               (1, 12, 12), (1, 37, 37), (1, 24, 24), (1, 100, 100)]
+N_SM = 132  # an H100 SXM
 
 
 def _inputs(n_sub, P, q, seed):
@@ -73,6 +79,50 @@ def _launches():
     return sum(ddmatvec.dd_matvec_cuda.shapes.values())
 
 
+def _chunk_bounds(pl, q):
+    return [(k * pl.cols, min((k + 1) * pl.cols, q)) for k in range(pl.chunks)]
+
+
+@pytest.mark.parametrize("n_sub,P,q", SHAPES + [(256, 848, 848)] + CARD_SHAPES)
+def test_plan_tiles_the_matrix_and_fills_the_card(n_sub, P, q):
+    """The kernel's launch plan: column chunks tile [0, q) exactly in whole
+    float4s, row tiles cover [0, q), a cluster of at most 8, and at least
+    one block per SM wherever q >= 256; the fine shape keeps one chunk."""
+    pl = ddmatvec.plan(n_sub, q, N_SM)
+    bounds = _chunk_bounds(pl, q)
+    assert bounds[0][0] == 0 and bounds[-1][1] == q
+    assert all(b0 < b1 for b0, b1 in bounds)
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    assert pl.chunks == 1 or pl.cols % 4 == 0
+    tiles = -(-q // pl.rows)
+    assert (tiles - 1) * pl.rows < q <= tiles * pl.rows
+    assert 1 <= pl.chunks <= ddmatvec.MAX_CLUSTER
+    assert pl.blocks == n_sub * tiles * pl.chunks
+    if q >= 256:
+        assert pl.blocks >= N_SM
+    if (n_sub, P, q) == (256, 848, 848):
+        assert pl == (64, 1, 848, 3584)
+    if n_sub == 1 and q <= 100:  # the cluster sizes the card test launches
+        assert pl.chunks == {12: 3, 37: 5, 24: 6, 100: 7}[q]
+
+
+@pytest.mark.parametrize("n_sub,P,q", [(1, 2048, 2048), (1, 1001, 1001)])
+def test_chunked_f64_sum_matches_unsplit(n_sub, P, q):
+    """The plan's column split changes nothing beyond rounding: the f64
+    product of the same hi/lo, summed chunk by chunk in the plan's order,
+    against the unsplit f64 product to 1e-14."""
+    A, d = _inputs(n_sub, P, q, seed=q)
+    hi, lo = dd_split(torch.as_tensor(A))
+    A32 = hi.double() + lo.double()
+    dt = torch.as_tensor(d)
+    pl = ddmatvec.plan(n_sub, q, N_SM)
+    assert pl.chunks > 1
+    y = torch.zeros(n_sub, q, dtype=torch.float64)
+    for c0, c1 in _chunk_bounds(pl, q):
+        y += (A32[:, :q, c0:c1] @ dt[:, c0:c1, None])[..., 0]
+    assert _relerr(y, (A32 @ dt[..., None])[..., 0]) < 1e-14
+
+
 def test_dispatch_cpu_takes_reference_and_cuda_wrapper_rejects_cpu():
     A, d = _inputs(2, 64, 50, seed=3)
     hi, lo = dd_split(torch.as_tensor(A))
@@ -95,7 +145,7 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_sub,P,q", SHAPES)
+@pytest.mark.parametrize("n_sub,P,q", SHAPES + CARD_SHAPES)
 def test_cuda_kernel_matches_reference(cuda_device, n_sub, P, q):
     """The kernel accumulates in f64: against the plain version (f32
     partial sums) to 1e-6, against the f64 truth to 1e-12."""
@@ -110,6 +160,19 @@ def test_cuda_kernel_matches_reference(cuda_device, n_sub, P, q):
     truth = ((hi.double() + lo.double())[:, :q, :q] @ dt[..., None])[..., 0]
     assert _relerr(y.cpu(), ref.cpu()) < 1e-6
     assert _relerr(y.cpu(), truth.cpu()) < 1e-12
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_is_deterministic(cuda_device):
+    """The cluster reduction of the column split runs in a fixed order: two
+    launches on the same inputs give the same bits."""
+    A, d = _inputs(1, 2048, 2048, seed=7)
+    hi, lo = dd_split(torch.as_tensor(A, device=cuda_device))
+    dt = torch.as_tensor(d, device=cuda_device)
+    assert ddmatvec.plan(1, 2048, ddmatvec.sm_count(cuda_device)).chunks > 1
+    y1 = ddmatvec.dd_matvec_cuda(hi, lo, dt)
+    y2 = ddmatvec.dd_matvec_cuda(hi, lo, dt)
+    assert torch.equal(y1, y2)
 
 
 @pytest.mark.cuda
