@@ -16,10 +16,16 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    the launch plan it took; then two launches at the coarse shape,
    which must give the same bits (the column split's cluster reduction runs
    in a fixed order);
-4. small-input references at islands 32^2 / 16 subdomains: the geneo dd
-   slice and the geneo_ring (R-dd) slice on the card, each against the
-   exact f64 slice on the CPU (iterations within 2, solutions within 1e-6);
-5. three main paths at islands 384^2 / 256 subdomains, overlap 2, nev 8,
+4. small-input references, each on the card against the exact f64 slice
+   on the CPU (iterations within 2, solutions within 1e-6): the geneo dd
+   and the geneo_ring (R-dd) slices at islands 32^2 / 16 subdomains, the
+   3-D hex dd slice at islands 12^3 / 8 subdomains, overlap 2, and the
+   elasticity dd slice at steel-rubber 32^2 / 16 subdomains;
+5. the main paths, nev 8, Cholesky coarse solve, restart 50 to 1e-8 with
+   verified termination, through the user entry points ``setup_problem ->
+   build_preconditioner -> solve -> solution``, each run cold then warm,
+   with the launch and route counts zeroed just before and read just after
+   each run.  Three at islands 384^2 / 256 subdomains, overlap 2, nev 8,
    Cholesky coarse solve, GMRES(50) to 1e-8 with verified termination,
    through the user entry points ``setup_problem -> build_preconditioner
    -> solve -> solution``, each run cold then warm, with the launch and
@@ -33,9 +39,24 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
      subdomain and coarse inverses (the kernel at two shapes), the direct
      extension;
 
-6. the f64 and dd fine-level apply times, and the kernel against its plain
-   version at both of R-dd's shapes, on R-dd's own inverses, with
-   CUDA-event timings, each with its launch plan, its share of the bound
+   then the 3-D hex paths at islands 56^3 (185,193 dofs) / 512 subdomains,
+   geneo, GMRES(50):
+
+   * ``hex_ov1_dd``: overlap 1 (n_pad 1000), dd subdomain and coarse
+     inverses: the kernel at (512, 1000, 1000) and (1, 4096, 4096);
+   * ``hex_ov2_f64``: overlap 2 (n_pad 1728), f64 inverses;
+   * ``hex_ov2_dd``: overlap 2, dd inverses: the kernel at
+     (512, 1728, 1728);
+
+   and vector-valued elasticity, steel-rubber on [0,3]x[0,1], Q1 on 256^2
+   (132,098 dofs) / 256 subdomains, overlap 2, geneo, flexible GMRES(50):
+
+   * ``elast_f64`` and ``elast_dd`` (dd subdomain and coarse inverses);
+
+6. after each dd path's warm run, the kernel against its plain version at
+   that path's shapes, on the path's own inverses, with CUDA-event
+   timings (and, for the ring paths, the f64 and dd fine-level apply
+   times), each with its launch plan, its share of the bound
    and, as a reference line over the same bytes, the f64 cuBLAS matvec of
    the f64 inverse hi + lo (``f64_library_ms``; it computes a different
    function, so ``library_ms`` stays null).
@@ -45,7 +66,7 @@ last line {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile [path ...]
 
-profiles the full-size paths instead (default: all three): one run to warm
+profiles full-size paths instead (default: the three 2-D ones): one run to warm
 up, then one under ``torch.profiler`` with CPU and CUDA activity, a window
 per entry point (``setup_problem``, ``build_preconditioner``, ``solve``),
 each printed with its wall seconds, device-busy seconds (the union of the
@@ -67,12 +88,19 @@ import time
 
 import torch
 
-# The JAX package's f64 path at full size (its CPU run with x64: islands
-# 384^2/256, nev 8, Cholesky coarse solve, GMRES(50) to 1e-8) takes 16 GMRES
-# iterations with geneo (true relative residual 4.39e-8) and 15 with
-# geneo_ring (1.52e-8).  Each path here must land within 2 of its count.
-MAX_ITERS = {"geneo_dd": 16 + 2, "ring_f64": 15 + 2, "ring_dd": 15 + 2}
-TRUE_RES_MAX = 1e-7
+# Iteration limits: the JAX package's f64 count at full size + 2.  Its CPU
+# run with x64 of islands 384^2/256 (nev 8, Cholesky coarse solve, GMRES(50)
+# to 1e-8) takes 16 iterations with geneo (true relative residual 4.39e-8)
+# and 15 with geneo_ring (1.52e-8); its recorded run of 3-D islands 56^3/512
+# at overlap 1 takes 19.  The overlap-2 hex paths must stay within 2 of
+# hex_ov1_dd's count of this run (set when that path has run).  Elasticity
+# 256^2/256 under flexible GMRES: the JAX package's Givens estimate meets
+# the target at iteration 46; here the estimate must meet it by 46 + 3 and
+# the verified solve end within 100.
+MAX_ITERS = {"geneo_dd": 16 + 2, "ring_f64": 15 + 2, "ring_dd": 15 + 2,
+             "hex_ov1_dd": 19 + 2, "elast_f64": 100, "elast_dd": 100}
+ESTIMATE_HIT_MAX = 46 + 3
+TRUE_RES_MAX = {"islands": 1e-7, "hex": 1e-7, "elast": 2e-8}
 KERNEL_VS_PLAIN_TOL = 1e-6  # plain version sums f32 partial products
 KERNEL_VS_F64_TOL = 1e-12  # kernel accumulates in f64
 
@@ -81,14 +109,28 @@ KERNEL_VS_F64_TOL = 1e-12  # kernel accumulates in f64
 HBM_BYTES_PER_S = 3.35e12
 FP64_FLOP_PER_S = 34e12
 
+DD = {"schwarz.subdomain_solver.precision": "dd",
+      "coarse_solver.precision": "dd"}
+# path -> (problem kind, coarse space, overlap, extra config keys)
 PATHS = {
-    "geneo_f64": ("geneo", {}),  # the CPU reference of geneo_dd
-    "geneo_dd": ("geneo", {"schwarz.subdomain_solver.precision": "dd"}),
-    "ring_f64": ("geneo_ring", {"geneo_ring.extension.maxit64": 4,
-                                "geneo_ring.extension.tolerance": 1e-6}),
-    "ring_dd": ("geneo_ring", {"schwarz.subdomain_solver.precision": "dd",
-                               "coarse_solver.precision": "dd"}),
+    "geneo_f64": ("islands", "geneo", 2, {}),  # the CPU reference of geneo_dd
+    "geneo_dd": ("islands", "geneo", 2,
+                 {"schwarz.subdomain_solver.precision": "dd"}),
+    "ring_f64": ("islands", "geneo_ring", 2,
+                 {"geneo_ring.extension.maxit64": 4,
+                  "geneo_ring.extension.tolerance": 1e-6}),
+    "ring_dd": ("islands", "geneo_ring", 2, DD),
+    "hex_ov1_dd": ("hex", "geneo", 1, DD),
+    "hex_ov2_f64": ("hex", "geneo", 2, {}),
+    "hex_ov2_dd": ("hex", "geneo", 2, DD),
+    "elast_f64": ("elast", "geneo", 2, {}),
+    "elast_dd": ("elast", "geneo", 2, DD),
 }
+# problem kind -> (cells per axis, parts) at full and at small size
+FULL = {"islands": (384, (16, 16)), "hex": (56, (8, 8, 8)),
+        "elast": (256, (16, 16))}
+SMALL = {"islands": (32, (4, 4)), "hex": (12, (2, 2, 2)),
+         "elast": (32, (4, 4))}
 
 
 def fail(msg):
@@ -100,11 +142,15 @@ def rel_err(y, ref):
 
 
 def path_ptree(api, path, gridsize):
-    coarse, keys = PATHS[path]
+    kind, coarse, overlap, keys = PATHS[path]
     pt = api.default_ptree()
     pt["gridsize"] = gridsize
-    pt["overlap"] = 2
+    pt["overlap"] = overlap
     pt["problem"] = "islands"
+    if kind == "elast":
+        # left-preconditioned GMRES converges in the preconditioned norm
+        # only: this preconditioner distorts norms by the stiffness contrast
+        pt["solver.type"] = "restartedflexiblegmressolver"
     pt["solver.reduction"] = 1e-8
     pt["solver.restart"] = 50
     pt["solver.maxit"] = 400
@@ -115,6 +161,23 @@ def path_ptree(api, path, gridsize):
     for k, v in keys.items():
         pt[k] = v
     return pt
+
+
+def path_problem(api, path, gridsize, parts, device):
+    """``setup_problem`` for one path: the islands problem on the unit
+    square or cube, or the steel-rubber strip on [0,3]x[0,1] with two
+    displacement components per node."""
+    from ddm_tpu_torch.fem import problems
+    from ddm_tpu_torch.fem.grids import structured_grid
+
+    pt = path_ptree(api, path, gridsize)
+    if PATHS[path][0] == "elast":
+        grid = structured_grid((gridsize, gridsize), (0, 0), (3.0, 1.0))
+        return api.setup_problem(pt, problem=problems.steel_rubber_2d(),
+                                 grid=grid, parts=parts, n_comp=2,
+                                 device=device)
+    return api.setup_problem(pt, grid=api.make_grid(pt, dim=len(parts)),
+                             parts=parts, device=device)
 
 
 def run_path(path, gridsize, parts, device):
@@ -129,14 +192,14 @@ def run_path(path, gridsize, parts, device):
     cuda = device.type == "cuda"
     if cuda:
         torch.cuda.synchronize()
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
     Logger.reset()
     ddmatvec.dd_matvec_cuda.shapes.clear()
     for k in ring.ROUTES:
         ring.ROUTES[k] = 0
     t0 = time.perf_counter()
-    p = api.setup_problem(path_ptree(api, path, gridsize), parts=parts,
-                          device=device)
+    p = path_problem(api, path, gridsize, parts, device)
     M = api.build_preconditioner(p)
     res = api.solve(p, M)
     u = api.solution(p, res)
@@ -144,30 +207,36 @@ def run_path(path, gridsize, parts, device):
         torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     shapes = dict(ddmatvec.dd_matvec_cuda.shapes)
+    log = Logger.get()
+    peak = max(log.peak_bytes, torch.cuda.max_memory_allocated(device)) if cuda else 0
     out = dict(
         p=p, M=M, res=res, u=u, secs=secs,
         launches=sum(shapes.values()), shapes=shapes,
         fine_applies=M.precs[0].applies, coarse_applies=M.precs[1].applies,
         routes=dict(ring.ROUTES),
-        events={k: v.total for k, v in Logger.get().events.items()},
-        peak_gib=torch.cuda.max_memory_allocated(device) / 2**30 if cuda else 0,
+        events={k: v.total for k, v in log.events.items()},
+        peaks={k: v.peak_bytes / 2**30 for k, v in log.events.items()},
+        peak_gib=peak / 2**30,
     )
     out["true_res"] = float(torch.linalg.norm(p.A.mv(res.x) - p.rhs)
                             / torch.linalg.norm(p.rhs))
     return out
 
 
+PHASES = [(("Schwarz", "extract"), "extract"),
+          (("Schwarz", "factorise"), "factorise"),
+          (("Eigensolver", "assemble Neumann"), "neumann"),
+          (("Eigensolver", "solve GEVP"), "gevp"),
+          (("Eigensolver", "extension"), "extension"),
+          (("GalerkinPrec", "build Matrix"), "coarse_matrix"),
+          (("GalerkinPrec", "factor A0"), "coarse_factor"),
+          (("Solver", "solve"), "solve")]
+
+
 def phase_split(ev):
     split = {"setup_problem": sum(v for (fam, _), v in ev.items()
                                   if fam == "Setup")}
-    for key, label in [(("Schwarz", "extract"), "extract"),
-                       (("Schwarz", "factorise"), "factorise"),
-                       (("Eigensolver", "assemble Neumann"), "neumann"),
-                       (("Eigensolver", "solve GEVP"), "gevp"),
-                       (("Eigensolver", "extension"), "extension"),
-                       (("GalerkinPrec", "build Matrix"), "coarse_matrix"),
-                       (("GalerkinPrec", "factor A0"), "coarse_factor"),
-                       (("Solver", "solve"), "solve")]:
+    for key, label in PHASES:
         if key in ev:
             split[label] = ev[key]
     return split
@@ -240,29 +309,40 @@ def check_kernel(ddmatvec, hi, lo, d, label):
 
 
 def check_path(path, run, r):
-    """Print one full-size run's phase split and counts; raise unless it
-    converged as required and launched the kernel where its path must."""
+    """Print one full-size run's phase split, peaks and counts; raise
+    unless it converged as required and launched the kernel where its path
+    must."""
     p, res, M = r["p"], r["res"], r["M"]
+    kind, _, _, keys = PATHS[path]
     print(f"{path} ({run}): " + ", ".join(
         f"{k} {v:.3f} s" for k, v in phase_split(r["events"]).items())
         + f", total {r['secs']:.3f} s, peak mem {r['peak_gib']:.2f} GiB",
         flush=True)
+    setup_peak = max(v for (fam, _), v in r["peaks"].items() if fam == "Setup")
+    print(f"{path} ({run}): peak GiB by phase: setup_problem "
+          f"{setup_peak:.2f}, " + ", ".join(
+              f"{label} {r['peaks'][key]:.2f}" for key, label in PHASES
+              if key in r["peaks"]), flush=True)
     print(f"{path} ({run}): n_dofs {p.disc.n_dofs}, n_sub {p.topo.n_sub}, "
-          f"n_pad {p.topo.n_pad}, iterations {res.iterations}, converged "
-          f"{res.converged}, true rel residual {r['true_res']:.3e}, dd_matvec "
+          f"n_pad {p.topo.n_pad}, iterations {res.iterations} (estimate met "
+          f"the target at {res.estimate_hit}), converged {res.converged}, "
+          f"true rel residual {r['true_res']:.3e}, dd_matvec "
           f"launches {r['launches']} by shape {r['shapes']}, applies "
           f"{r['fine_applies']} fine + {r['coarse_applies']} coarse, "
           f"extension routes {r['routes']}", flush=True)
-    if not (res.converged and r["true_res"] <= TRUE_RES_MAX
+    if not (res.converged and r["true_res"] <= TRUE_RES_MAX[kind]
             and res.iterations <= MAX_ITERS[path]):
         fail(f"{path} did not converge as required")
+    if kind == "elast" and not 0 < res.estimate_hit <= ESTIMATE_HIT_MAX:
+        fail(f"{path}: the Givens estimate met the target at iteration "
+             f"{res.estimate_hit}, limit {ESTIMATE_HIT_MAX}")
     if not (r["u"].shape == (p.disc.n_dofs,) and bool(torch.isfinite(r["u"]).all())):
         fail("solution is not a finite vector of n_dofs entries")
     n_pad, n_c = p.topo.n_pad, M.precs[1].V.shape[0] * M.precs[1].V.shape[1]
     want = {}  # dd_matvec launches by shape: 3 per dd apply
-    if path != "ring_f64":
+    if keys.get("schwarz.subdomain_solver.precision") == "dd":
         want[(p.topo.n_sub, n_pad, n_pad)] = 3 * r["fine_applies"]
-    if path == "ring_dd":
+    if keys.get("coarse_solver.precision") == "dd":
         want[(1, n_c, n_c)] = 3 * r["coarse_applies"]
     if not (r["shapes"] == want and all(want.values())):
         fail(f"{path} did not run through the dd_matvec kernel as expected: "
@@ -271,6 +351,51 @@ def check_path(path, run, r):
         fail("ring_f64 did not take the PCG extension route")
     if path == "ring_dd" and not r["routes"]["direct"] >= 1:
         fail("ring_dd did not take the direct extension route")
+
+
+def time_kernel(ddmatvec, path, r, flush_buf, gen):
+    """The kernel against its plain version and the f64 product at the
+    shapes of a dd path, on that path's own inverses, with CUDA-event
+    times; returns one entry per shape for the kernels line."""
+    fine, coarse = r["M"].precs
+    dev = r["p"].device
+    entries = []
+    for label, fac in (("fine", fine.factors), ("coarse", coarse.coarse)):
+        if not hasattr(fac, "inv_hi"):
+            continue
+        hi, lo = fac.inv_hi, fac.inv_lo
+        n_sub, P, _ = hi.shape
+        dv = torch.randn((n_sub, P), generator=gen, device=dev,
+                         dtype=torch.float64)
+        abs_err, pl = check_kernel(ddmatvec, hi, lo, dv, f"{path} {label}")
+        # a coarse inverse may fit in the 50 MB L2 (33.6 MB at n_c 2048),
+        # but the solve reads it after the fine level's gigabytes: flush
+        flush = flush_buf.zero_ if label == "coarse" else None
+        reps = 20 if n_sub * P * P < 2**29 else 5
+        ms = time_ms(lambda: ddmatvec.dd_matvec_cuda(hi, lo, dv), reps=reps,
+                     flush=flush)
+        plain_ms = time_ms(lambda: ddmatvec.dd_matvec_reference(hi, lo, dv),
+                           reps=reps, flush=flush)
+        inv64 = hi.double()  # the same bytes as hi + lo
+        inv64 += lo
+        f64_ms = time_ms(lambda: torch.bmm(inv64, dv[..., None]), reps=reps,
+                         flush=flush)
+        del inv64
+        b_ms, b_by = bound_ms(n_sub, P)
+        print(f"kernel {path} {label} {tuple(hi.shape)} [{plan_str(pl)}]: "
+              f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}), {b_ms / ms:.3f} of the bound, "
+              f"{8 * n_sub * P * P / ms / 1e6:.0f} GB/s of hi+lo; f64 cuBLAS "
+              f"matvec of hi + lo (reference) {f64_ms:.4f} ms", flush=True)
+        entries.append({
+            "path": path, "shape": [n_sub, P, P],
+            "launches": r["shapes"][(n_sub, P, P)],
+            "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "share_of_bound": b_ms / ms, "f64_library_ms": f64_ms,
+            "plan": pl._asdict(),
+        })
+    return entries
 
 
 def device_busy(prof):
@@ -320,13 +445,13 @@ def profile_paths(paths):
     print(f"device: {torch.cuda.get_device_name(0)} | torch {torch.__version__}",
           flush=True)
     for path in paths or ["geneo_dd", "ring_f64", "ring_dd"]:
-        pt = path_ptree(api, path, 384)
-        p = api.setup_problem(pt, parts=(16, 16), device=dev)
+        gridsize, parts = FULL[PATHS[path][0]]
+        p = path_problem(api, path, gridsize, parts, dev)
         res = api.solve(p, api.build_preconditioner(p))
         del p, res
         print(f"{path} (warm, profiled):", flush=True)
-        p = profiled("setup_problem", lambda: api.setup_problem(
-            pt, parts=(16, 16), device=dev))
+        p = profiled("setup_problem", lambda: path_problem(
+            api, path, gridsize, parts, dev))
         M = profiled("build_preconditioner", lambda: api.build_preconditioner(p))
         res = profiled("solve", lambda: api.solve(p, M))
         print(f"  iterations {res.iterations}, converged {res.converged}",
@@ -438,17 +563,20 @@ def main():
 
     # -- 4. small-input references: card vs CPU exact f64 -------------------
     cpu = torch.device("cpu")
-    for path, ref in (("geneo_dd", "geneo_f64"), ("ring_dd", "ring_f64")):
-        g = run_path(path, 32, (4, 4), dev)
-        c = run_path(ref, 32, (4, 4), cpu)
+    for path, ref in (("geneo_dd", "geneo_f64"), ("ring_dd", "ring_f64"),
+                      ("hex_ov2_dd", "hex_ov2_f64"), ("elast_dd", "elast_f64")):
+        gridsize, parts = SMALL[PATHS[path][0]]
+        g = run_path(path, gridsize, parts, dev)
+        c = run_path(ref, gridsize, parts, cpu)
         e_small = rel_err(g["u"].cpu(), c["u"])
         n_dd = 3 * g["fine_applies"]
-        if path == "ring_dd":
+        if "coarse_solver.precision" in PATHS[path][3]:
             n_dd += 3 * g["coarse_applies"]
-        print(f"small 32^2/16 {path}: card {g['res'].iterations} its, cpu "
-              f"{ref} {c['res'].iterations} its, solution rel diff "
-              f"{e_small:.3e}, launches {g['launches']} = 3 x "
-              f"({g['fine_applies']} fine + {g['coarse_applies']} coarse) "
+        print(f"small {gridsize}^{len(parts)}/{g['p'].topo.n_sub} {path}: card "
+              f"{g['res'].iterations} its (true rel residual "
+              f"{g['true_res']:.3e}), cpu {ref} {c['res'].iterations} its, "
+              f"solution rel diff {e_small:.3e}, launches {g['launches']} = "
+              f"3 x ({g['fine_applies']} fine + {g['coarse_applies']} coarse) "
               f"applies, by shape {g['shapes']}", flush=True)
         if not (g["res"].converged
                 and abs(g["res"].iterations - c["res"].iterations) <= 2
@@ -456,69 +584,45 @@ def main():
             fail(f"small-input {path} on the card disagrees with the CPU")
         del g, c
 
-    # -- 5. main paths at full size, cold then warm ---------------------------
-    launches = {}
-    for path in ("geneo_dd", "ring_f64", "ring_dd"):
+    # -- 5. main paths at full size, cold then warm; 6. their kernel shapes --
+    flush_buf = torch.empty(2 * 50 * 2**20, dtype=torch.uint8, device=dev)
+    launches, entries = {}, []
+    for path in ("geneo_dd", "ring_f64", "ring_dd", "hex_ov1_dd",
+                 "hex_ov2_f64", "hex_ov2_dd", "elast_f64", "elast_dd"):
+        gridsize, parts = FULL[PATHS[path][0]]
         for run in ("cold", "warm"):
             r = None  # free the last run before this one's peak is taken
-            r = run_path(path, 384, (16, 16), dev)
+            r = run_path(path, gridsize, parts, dev)
             check_path(path, run, r)
         launches[path] = r["launches"]
-        if path == "geneo_dd":
-            continue
-        # the fine apply of both ring paths: the f64 inverse is read once
-        # per apply (1.47 GB), hi + lo three times (3 x 1.47 GB)
-        fine = r["M"].precs[0]
-        d = torch.randn(r["p"].disc.n_dofs, generator=gen, device=dev,
-                        dtype=torch.float64)
-        line = f"{path} fine apply: {time_ms(lambda: fine.apply(d)):.4f} ms"
-        if path == "ring_f64":
-            d_sub = torch.randn(fine.sub2glob.shape, generator=gen, device=dev,
-                                dtype=torch.float64)
-            ms_inv = time_ms(lambda: fine.factors.solve(d_sub))
-            line += (f", of which the f64 inverse matvec {ms_inv:.4f} ms "
-                     f"({fine.factors.inv.numel() * 8 / ms_inv / 1e6:.0f} GB/s)")
-            del d_sub
-        else:
-            line += " (3 kernel launches + 2 exact sparse defects)"
-        print(line, flush=True)
-        del fine, d
+        if path == "hex_ov1_dd":
+            for ov2 in ("hex_ov2_f64", "hex_ov2_dd"):
+                MAX_ITERS[ov2] = r["res"].iterations + 2
+        if path in ("ring_f64", "ring_dd"):
+            # the fine apply of both ring paths: the f64 inverse is read once
+            # per apply (1.47 GB), hi + lo three times (3 x 1.47 GB)
+            fine = r["M"].precs[0]
+            d = torch.randn(r["p"].disc.n_dofs, generator=gen, device=dev,
+                            dtype=torch.float64)
+            line = f"{path} fine apply: {time_ms(lambda: fine.apply(d)):.4f} ms"
+            if path == "ring_f64":
+                d_sub = torch.randn(fine.sub2glob.shape, generator=gen,
+                                    device=dev, dtype=torch.float64)
+                ms_inv = time_ms(lambda: fine.factors.solve(d_sub))
+                line += (f", of which the f64 inverse matvec {ms_inv:.4f} ms "
+                         f"({fine.factors.inv.numel() * 8 / ms_inv / 1e6:.0f} GB/s)")
+                del d_sub
+            else:
+                line += " (3 kernel launches + 2 exact sparse defects)"
+            print(line, flush=True)
+            del fine, d
+        if path != "geneo_dd":  # its one shape is ring_dd's fine shape
+            entries += time_kernel(ddmatvec, path, r, flush_buf, gen)
+    r = None
 
-    # -- 6. the kernel at R-dd's two shapes, on R-dd's own inverses ----------
-    fine, coarse = r["M"].precs
-    flush_buf = torch.empty(2 * 50 * 2**20, dtype=torch.uint8, device=dev)
-    entries = []
-    for label, fac in (("fine", fine.factors), ("coarse", coarse.coarse)):
-        hi, lo = fac.inv_hi, fac.inv_lo
-        n_sub, P, _ = hi.shape
-        dv = torch.randn((n_sub, P), generator=gen, device=dev,
-                         dtype=torch.float64)
-        abs_err, pl = check_kernel(ddmatvec, hi, lo, dv, f"ring_dd {label}")
-        # the coarse inverse (33.6 MB at n_c 2048) fits in the 50 MB L2, but
-        # the solve reads it after the fine level's 1.47 GB: flush first
-        flush = flush_buf.zero_ if label == "coarse" else None
-        ms = time_ms(lambda: ddmatvec.dd_matvec_cuda(hi, lo, dv), flush=flush)
-        plain_ms = time_ms(lambda: ddmatvec.dd_matvec_reference(hi, lo, dv),
-                           flush=flush)
-        inv64 = hi.double() + lo.double()  # the same bytes as hi + lo
-        f64_ms = time_ms(lambda: torch.bmm(inv64, dv[..., None]), flush=flush)
-        del inv64
-        b_ms, b_by = bound_ms(n_sub, P)
-        print(f"kernel ring_dd {label} {tuple(hi.shape)} [{plan_str(pl)}]: "
-              f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
-              f"({b_by}), {b_ms / ms:.3f} of the bound, "
-              f"{8 * n_sub * P * P / ms / 1e6:.0f} GB/s of hi+lo; f64 cuBLAS "
-              f"matvec of hi + lo (reference) {f64_ms:.4f} ms", flush=True)
-        entries.append({
-            "shape": [n_sub, P, P], "launches": r["shapes"][(n_sub, P, P)],
-            "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "share_of_bound": b_ms / ms, "f64_library_ms": f64_ms,
-            "plan": pl._asdict(),
-        })
-
-    # top-level numbers: this slice's main path (R-dd) at its fine shape;
-    # each path's total over both shapes stands in launches_by_path
+    # top-level numbers: the ring_dd path at its fine shape (the first
+    # entry); every path's shapes stand in "shapes", each path's total over
+    # its shapes in launches_by_path
     print(json.dumps({"kernels": [{
         "name": "dd_matvec", "route": "cuda",
         "source": "ddm_tpu_torch/csrc/dd_matvec.cu",

@@ -61,12 +61,19 @@ class DDMProblem:
 
 
 def make_grid(ptree: ParamTree, dim: int = 2):
-    """Structured grid with ``gridsize`` cells per axis (reference:
-    ddm_utilities.hh:33-171 make_grid); mesh files are not ported."""
+    """Structured grid with ``gridsize`` cells per axis, refined ``refine``
+    times (reference: ddm_utilities.hh:33-171 make_grid); mesh files are
+    not ported."""
     if ptree.get("meshfile", ""):
         raise NotImplementedError("meshfile grids are not ported")
     gs = ptree.get("gridsize", 64)
-    return structured_grid((gs,) * dim)
+    grid = structured_grid((gs,) * dim)
+    refine_n = ptree.get("refine", 0)
+    if refine_n:
+        from .fem.grids import refine
+
+        grid = refine(grid, refine_n)
+    return grid
 
 
 def default_device() -> torch.device:
@@ -86,16 +93,19 @@ def setup_problem(
     n_sub: int | None = None,
     parts: tuple[int, ...] | None = None,
     device=None,
+    n_comp: int = 1,
 ) -> DDMProblem:
     """Grid, discretization, topology and POU per config, on ``device``
-    (default: the CUDA card, see :func:`default_device`)."""
+    (default: the CUDA card, see :func:`default_device`).  ``n_comp`` > 1
+    takes an :class:`~.fem.problems.ElasticityProblem` with that many
+    unknowns per node."""
     device = default_device() if device is None else torch.device(device)
     ptree = ptree or default_ptree()
     problem = problem or problems_mod.PROBLEMS[ptree.get("problem", "simple")]()
     with scoped("Setup", "grid (host)"):
         grid = grid if grid is not None else make_grid(ptree)
     with scoped("Setup", "discretize (host pattern)", device):
-        disc = Discretization(grid, problem, device)
+        disc = Discretization(grid, problem, device, n_comp=n_comp)
     with scoped("Setup", "assemble + constrain", device):
         A, rhs, g = disc.constrained_system()
     scale = None

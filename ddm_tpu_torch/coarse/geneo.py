@@ -45,7 +45,8 @@ def _stamp_sum(p, dof_mask) -> torch.Tensor:
     A = neumann_dense(Ke, plan, topo.n_sub, topo.n_pad)
     if p.scale is not None:
         sub2glob = torch.as_tensor(topo.sub2glob.astype(np.int64), device=device)
-        A = scale_matrix_with_pou(A, gather_subdomain(p.scale, sub2glob))
+        A = scale_matrix_with_pou(A, gather_subdomain(p.scale, sub2glob),
+                                  inplace=True)
     return A
 
 
@@ -69,9 +70,11 @@ def neumann_matrices(p):
         B_neu = _stamp_sum(p, topo.bdist <= 2 * topo.overlap)
         dmask_sub = dirichlet_mask_sub(p)
         valid = torch.as_tensor(topo.valid, device=p.device)
+        # both batches are fresh sums: eliminate in place
         A_neu = eliminate_dirichlet_dense(A_neu, dmask_sub,
-                                          unit_diag_padding=~valid)
-        B_neu = eliminate_dirichlet_dense(B_neu, dmask_sub)
+                                          unit_diag_padding=~valid,
+                                          inplace=True)
+        B_neu = eliminate_dirichlet_dense(B_neu, dmask_sub, inplace=True)
     return A_neu, B_neu
 
 
@@ -82,7 +85,7 @@ def region_neumann(p, dof_mask) -> torch.Tensor:
     (reference: the ring assembly path, examples/pdelab_helper.hh:343-396;
     the JAX package's ``method="sum"``)."""
     A = _stamp_sum(p, np.asarray(dof_mask, bool))
-    return eliminate_dirichlet_dense(A, dirichlet_mask_sub(p))
+    return eliminate_dirichlet_dense(A, dirichlet_mask_sub(p), inplace=True)
 
 
 def geneo_coarse_space(p, ptree: ParamTree) -> CoarseBasis:
@@ -90,7 +93,7 @@ def geneo_coarse_space(p, ptree: ParamTree) -> CoarseBasis:
     params = EigensolverParams.from_ptree(ptree.sub("geneo.eigensolver"))
     pou = torch.as_tensor(p.pou, dtype=torch.float64, device=p.device)
     A_neu, B_neu = neumann_matrices(p)
-    C = scale_matrix_with_pou(B_neu, pou)
+    C = scale_matrix_with_pou(B_neu, pou, inplace=True)
     del B_neu
     with scoped("Eigensolver", "solve GEVP", p.device):
         _, V, active = solve_gevp(A_neu, C, params)

@@ -67,6 +67,25 @@ def topology_from_numpy(sub2glob, valid, bdist, boundary, overlap: int,
     return topo
 
 
+def discretization_from_numpy(grid, problem, n_comp: int, dirichlet_mask,
+                              dirichlet_values, *, device):
+    """The port's Discretization of ``grid`` (the port's own Grid over the
+    same nodes and elements) for a problem with ``n_comp`` unknowns per
+    node, with the Dirichlet mask (repeated per component) and the
+    flattened boundary data pinned to the arrays of the JAX package's
+    discretization, so both packages constrain the same dofs to the same
+    values."""
+    from .fem.discretize import Discretization
+
+    disc = Discretization(grid, problem, device, n_comp=n_comp)
+    mask = torch.tensor(np.asarray(dirichlet_mask, bool), device=device)
+    if mask.shape != (disc.n_dofs,):
+        raise ValueError(f"mask must have n_dofs = {disc.n_dofs} entries")
+    disc.__dict__["dirichlet_mask"] = mask
+    disc.__dict__["dirichlet_values"] = _f64(dirichlet_values, device)
+    return disc
+
+
 def problem_from_numpy(
     colsT, valsT, rhs, g, scale, pou, sub2glob, valid, bdist, boundary,
     dualT, overlap: int, *, device, ptree: ParamTree | None = None,

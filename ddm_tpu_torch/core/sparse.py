@@ -37,24 +37,29 @@ class SumPlan:
     @staticmethod
     def build(src_idx: np.ndarray, tgt_idx: np.ndarray, n_src: int,
               device) -> "SumPlan":
-        """Plan for adding ``src[src_idx[i]]`` into ``out[tgt_idx[i]]``."""
-        src_idx = np.asarray(src_idx, dtype=np.int64).reshape(-1)
-        tgt_idx = np.asarray(tgt_idx, dtype=np.int64).reshape(-1)
-        order = np.lexsort((src_idx, tgt_idx))
-        t_sorted = tgt_idx[order]
-        targets, start, counts = np.unique(
-            t_sorted, return_index=True, return_counts=True
-        )
-        K = int(counts.max()) if counts.size else 1
-        pos = np.arange(t_sorted.size) - np.repeat(start, counts)
-        seg = np.repeat(np.arange(targets.size), counts)
-        dual = np.full((targets.size, K), n_src, dtype=np.int64)
-        dual[seg, pos] = src_idx[order]
-        return SumPlan(
-            targets=torch.as_tensor(targets, device=device),
-            dual=torch.as_tensor(dual, device=device),
-            n_src=n_src,
-        )
+        """Plan for adding ``src[src_idx[i]]`` into ``out[tgt_idx[i]]``.
+        The index arrays come from the host; the sort that groups them by
+        target (then by source) runs on ``device``, where tens of millions
+        of entries (3-D Neumann sums) take milliseconds."""
+        src = torch.as_tensor(np.asarray(src_idx, dtype=np.int64).reshape(-1),
+                              device=device)
+        tgt = torch.as_tensor(np.asarray(tgt_idx, dtype=np.int64).reshape(-1),
+                              device=device)
+        # two stable sorts = one lexicographic (target, source) order
+        src, order = torch.sort(src, stable=True)
+        tgt, order = torch.sort(tgt[order], stable=True)
+        src = src[order]
+        del order
+        targets, counts = torch.unique_consecutive(tgt, return_counts=True)
+        K = int(counts.max()) if counts.numel() else 1
+        start = torch.cumsum(counts, 0) - counts
+        seg = torch.repeat_interleave(
+            torch.arange(targets.numel(), device=device), counts)
+        pos = torch.arange(tgt.numel(), device=device) - start[seg]
+        dual = torch.full((targets.numel(), K), n_src, dtype=torch.int64,
+                          device=device)
+        dual[seg, pos] = src
+        return SumPlan(targets=targets, dual=dual, n_src=n_src)
 
     def sums(self, src: torch.Tensor) -> torch.Tensor:
         """(U,) per-target sums of the flattened ``src``."""

@@ -18,4 +18,11 @@ def solve_gevp(A, C, params: EigensolverParams, spd: bool = True):
         raise NotImplementedError("indefinite (spd=False) pencils are not ported")
     if params.type.lower() not in _DENSE_NAMES:
         raise ValueError(f"eigensolver type '{params.type}' is not ported")
-    return solve_gevp_dense(A, C, params)
+    # slabs of subdomains: the transform holds about ten pencil-sized
+    # temporaries (regularized A, factor, its inverse, S, all of S's
+    # eigenvectors, the library's workspace) to keep max_kept vectors each
+    from ..solvers.direct import batch_chunk_size, chunked_batch
+
+    return chunked_batch(
+        lambda a, c: solve_gevp_dense(a, c, params), A, C,
+        chunk=batch_chunk_size(A.shape[-1], live_buffers=10))

@@ -66,7 +66,10 @@ def solve_gevp_dense(
     scale = torch.mean(torch.abs(torch.diagonal(A, dim1=1, dim2=2)), dim=1)
     eps = reg * torch.clamp(scale, min=1.0)
     eye = torch.eye(p, dtype=A.dtype, device=A.device)
-    L = torch.linalg.cholesky(A + eps[:, None, None] * eye)
+    Areg = A.clone()
+    Areg.diagonal(dim1=1, dim2=2).add_(eps[:, None])
+    L = torch.linalg.cholesky(Areg)
+    del Areg
     Linv = torch.linalg.solve_triangular(L, eye.expand_as(A), upper=False)
     del L
     S = Linv @ C @ Linv.mT

@@ -1,4 +1,5 @@
-"""Batched FEM assembly in torch: the scalar Q1 diffusion form.
+"""Batched FEM assembly in torch: the scalar Q1 diffusion form and
+vector-valued Q1 linear elasticity.
 
 Counterpart of ``ddm_tpu/fem/assemble.py`` (reference: PDELab's
 ConvectionDiffusionFEM via examples/generic_ddm_problem.hh).  All element
@@ -7,6 +8,10 @@ then summed into the global ELL matrix through the host-built assembly plan
 (core/sparse.py:EllPattern).
 
     a(u,v) = ∫ α ∇u·∇v ,   rhs ∫ f v
+
+and (reference: dune-pdelab LinearElasticity, examples/linearelasticity.cc)
+
+    a(u,v) = ∫ 2 μ ε(u):ε(v) + λ (div u)(div v) ,   rhs ∫ f·v
 
 on quadrilaterals (2-D) or hexahedra (3-D), tensor-product 2-point Gauss.
 """
@@ -97,10 +102,60 @@ def assemble_diffusion(quad: ElementQuadrature, xe: torch.Tensor, alpha_fn,
     return Ke, fe
 
 
-def element_coo_indices(elems: np.ndarray):
+def assemble_linear_elasticity(quad: ElementQuadrature, xe: torch.Tensor,
+                               lame_lambda_fn, lame_mu_fn, f_fn=None):
+    """Batched element matrices/vectors of linear elasticity (vector Q1).
+
+    Dof order within the element: node-major, component-minor, dof (i, c)
+    -> i * d + c.  ``f_fn`` maps (..., d) points to (..., d) loads (None:
+    zero load).  Returns (Ke (n_e, nd*d, nd*d), fe (n_e, nd*d))."""
+    xq, grads, jxw = element_geometry(quad, xe)
+    f = None if f_fn is None else f_fn(xq)
+    return _elasticity_terms(quad, grads, jxw, lame_lambda_fn(xq),
+                             lame_mu_fn(xq), f)
+
+
+def _elasticity_terms(quad, grads, jxw, lam, mu, f):
+    """Einsum stages of the elasticity assembly on per-quadrature-point
+    coefficient values lam, mu (n_e, q) and f (n_e, q, d) or None."""
+    n_e, _, nd, d = grads.shape
+    # for u = phi_j e_c, v = phi_i e_k:
+    #   eps(u):eps(v) = 0.5 (delta_ck grad phi_i . grad phi_j
+    #                        + d_k phi_j d_c phi_i)
+    #   div u div v   = d_c phi_j d_k phi_i
+    gg = torch.einsum("eqig,eqjg->eqij", grads, grads)
+    eye = torch.eye(d, dtype=grads.dtype, device=grads.device)
+    eps_term = 0.5 * (
+        torch.einsum("ck,eqij->eqijck", eye, gg)
+        + torch.einsum("eqjk,eqic->eqijck", grads, grads)
+    )
+    div_term = torch.einsum("eqjc,eqik->eqijck", grads, grads)
+    Kfull = (torch.einsum("eq,eqijck->eijck", jxw * 2 * mu, eps_term)
+             + torch.einsum("eq,eqijck->eijck", jxw * lam, div_term))
+    # (i, j, c, k) -> rows (i*d + k), cols (j*d + c)
+    Ke = Kfull.permute(0, 1, 4, 2, 3).reshape(n_e, nd * d, nd * d)
+    if f is None:
+        fe = Ke.new_zeros((n_e, nd * d))
+    else:
+        fe = torch.einsum("eq,qi,eqc->eic", jxw, quad.phi, f).reshape(
+            n_e, nd * d)
+    return Ke, fe
+
+
+def element_dofs(elems: np.ndarray, n_comp: int = 1) -> np.ndarray:
+    """Host: (n_e, nd*n_comp) global dof ids per element, node-major and
+    component-minor (dof = node * n_comp + c)."""
+    if n_comp == 1:
+        return elems
+    return (elems[:, :, None] * n_comp + np.arange(n_comp)).reshape(
+        elems.shape[0], -1)
+
+
+def element_coo_indices(elems: np.ndarray, n_comp: int = 1):
     """Host: (rows, cols) COO index arrays matching ``Ke.reshape(-1)`` of an
-    (n_e, nd, nd) element-matrix batch."""
-    n_e, nd = elems.shape
-    rows = np.repeat(elems, nd, axis=1).reshape(-1)
-    cols = np.tile(elems, (1, nd)).reshape(-1)
+    (n_e, nd*n_comp, nd*n_comp) element-matrix batch."""
+    dofs = element_dofs(elems, n_comp)
+    nl = dofs.shape[1]
+    rows = np.repeat(dofs, nl, axis=1).reshape(-1)
+    cols = np.tile(dofs, (1, nl)).reshape(-1)
     return rows, cols

@@ -1,8 +1,9 @@
 """Discretization driver: grid + problem -> global system + DDM inputs.
 
 Counterpart of ``ddm_tpu/fem/discretize.py`` (reference: GenericDDMProblem,
-examples/generic_ddm_problem.hh:48-407) for nodal Q1 scalar problems.
-The constrained system is the correction form
+examples/generic_ddm_problem.hh:48-407) for nodal Q1 problems: scalar
+diffusion (``n_comp = 1``) or vector-valued elasticity (``n_comp = d``, dof
+= node * n_comp + component).  The constrained system is the correction form
 
     A_c z = b - A g,   rhs zeroed at Dirichlet dofs,  u = g + z
 
@@ -21,29 +22,33 @@ from ..core.sparse import EllPattern, SparseELL, SumPlan, eliminate_dirichlet
 from .assemble import (
     ElementQuadrature,
     assemble_diffusion,
+    assemble_linear_elasticity,
     element_coo_indices,
+    element_dofs,
 )
 from .grids import Grid
-from .problems import Problem
+from .problems import ElasticityProblem, Problem
 
 
 class Discretization:
-    """Scalar nodal discretization of ``problem`` on ``grid``; the device
-    tensors it makes live on ``device``."""
+    """Nodal Q1 discretization of ``problem`` on ``grid`` with ``n_comp``
+    unknowns per node; the device tensors it makes live on ``device``."""
 
-    def __init__(self, grid: Grid, problem: Problem, device):
+    def __init__(self, grid: Grid, problem: Problem | ElasticityProblem,
+                 device, n_comp: int = 1):
         self.grid = grid
         self.problem = problem
         self.device = torch.device(device)
-        self.n_dofs = grid.n_nodes
+        self.n_comp = n_comp
+        self.n_dofs = grid.n_nodes * n_comp
         self.quad = ElementQuadrature(grid.elem_type, self.device)
         self.xe = torch.as_tensor(
             grid.nodes[grid.elems], dtype=torch.float64, device=self.device
         )
-        rows, cols = element_coo_indices(grid.elems)
+        rows, cols = element_coo_indices(grid.elems, n_comp)
         self.pattern = EllPattern.from_coo(rows, cols, self.n_dofs)
         self._matrix_plan = self.pattern.assembly_plan(self.device)
-        e = grid.elems.reshape(-1)
+        e = self.dof_tuples().reshape(-1)
         self._rhs_plan = SumPlan.build(
             np.arange(e.size), e, e.size, self.device
         )
@@ -60,11 +65,16 @@ class Discretization:
     def dirichlet_mask(self) -> torch.Tensor:
         """(n_dofs,) bool — physical-boundary dofs selected by the problem."""
         bnd = torch.as_tensor(self.grid.boundary_nodes(), device=self.device)
-        return bnd & self.problem.is_dirichlet(self._node_coords)
+        node_mask = bnd & self.problem.is_dirichlet(self._node_coords)
+        if self.n_comp == 1:
+            return node_mask
+        return torch.repeat_interleave(node_mask, self.n_comp)
 
     @cached_property
     def dirichlet_values(self) -> torch.Tensor:
-        g = self.problem.g(self._node_coords)
+        """(n_dofs,) boundary data; a vector problem's ``g`` returns
+        (n_nodes, n_comp), flattened node-major."""
+        g = self.problem.g(self._node_coords).reshape(-1)
         return torch.where(self.dirichlet_mask, g, 0.0)
 
     # -- assembly ----------------------------------------------------------
@@ -72,7 +82,11 @@ class Discretization:
         """Batched (Ke, fe) of the problem, computed once."""
         if self._Ke is None:
             p = self.problem
-            self._Ke = assemble_diffusion(self.quad, self.xe, p.alpha, p.f)
+            if isinstance(p, ElasticityProblem):
+                self._Ke = assemble_linear_elasticity(
+                    self.quad, self.xe, p.lam, p.mu, p.f)
+            else:
+                self._Ke = assemble_diffusion(self.quad, self.xe, p.alpha, p.f)
         return self._Ke
 
     def assemble(self) -> tuple[SparseELL, torch.Tensor]:
@@ -91,8 +105,9 @@ class Discretization:
 
     # -- DDM inputs --------------------------------------------------------
     def dof_tuples(self) -> np.ndarray:
-        """(n_elems, nl) global dof ids per element (host)."""
-        return self.grid.elems
+        """(n_elems, nl) global dof ids per element (host): the unit of dof
+        membership and ownership for the DDM topology."""
+        return element_dofs(self.grid.elems, self.n_comp)
 
     def neumann_stamps(self):
         """Assembly stamps for subdomain Neumann matrices: one group of

@@ -94,22 +94,29 @@ def neumann_dense(Ke: torch.Tensor, plan: SumPlan, n_sub: int,
 
 def eliminate_dirichlet_dense(
     A: torch.Tensor, dmask_sub: torch.Tensor,
-    unit_diag_padding: torch.Tensor | None = None,
+    unit_diag_padding: torch.Tensor | None = None, inplace: bool = False,
 ) -> torch.Tensor:
     """Symmetric Dirichlet elimination on a dense subdomain batch
     (pdelab_helper.hh:33-46 semantics: Dirichlet rows/cols -> identity).
 
     dmask_sub: (n_sub, n_pad) bool.  unit_diag_padding: optional (n_sub,
-    n_pad) bool mask of slots that additionally get a unit diagonal."""
+    n_pad) bool mask of slots that additionally get a unit diagonal.
+    ``inplace`` overwrites ``A`` (a batch its caller no longer needs)
+    instead of making three batch-sized temporaries."""
     d = dmask_sub.to(torch.bool)
-    keep = ~(d[:, :, None] | d[:, None, :])
-    A = torch.where(keep, A, 0.0)
+    A = A if inplace else A.clone()
+    A.masked_fill_(d[:, :, None], 0.0)
+    A.masked_fill_(d[:, None, :], 0.0)
     if unit_diag_padding is not None:
         d = d | unit_diag_padding
-    return A + torch.diag_embed(d.to(A.dtype))
+    A.diagonal(dim1=1, dim2=2).add_(d.to(A.dtype))
+    return A
 
 
-def scale_matrix_with_pou(C: torch.Tensor, pou: torch.Tensor) -> torch.Tensor:
+def scale_matrix_with_pou(C: torch.Tensor, pou: torch.Tensor,
+                          inplace: bool = False) -> torch.Tensor:
     """C[i][j] *= pou[i]*pou[j] (reference: detail::scale_matrix_with_pou,
-    coarse_spaces.hh:74-96), batched."""
+    coarse_spaces.hh:74-96), batched; ``inplace`` overwrites ``C``."""
+    if inplace:
+        return C.mul_(pou[:, :, None]).mul_(pou[:, None, :])
     return C * pou[:, :, None] * pou[:, None, :]

@@ -5,7 +5,10 @@ families -> events with start/end pairs, a nesting guard that rejects a
 double start, scoped timing and a total/mean/min/max report (reference:
 dune/ddm/logger.hh ``Logger`` / ``ScopedLog``).  CUDA work is asynchronous,
 so a scope given a CUDA device synchronizes it before it stops the clock:
-phase times then hold the device work launched inside them.
+phase times then hold the device work launched inside them.  Such a scope
+also records the peak of allocated device memory while it was open
+(``Event.peak_bytes``); ``Logger.peak_bytes`` keeps the peak over everything
+since the last ``Logger.reset()``, in and between scopes.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ class Event:
     total: float = 0.0
     min: float = float("inf")
     max: float = 0.0
+    peak_bytes: int = 0  # most device memory allocated inside the scope
     _start: float | None = field(default=None, repr=False)
 
     def record(self, dt: float) -> None:
@@ -41,6 +45,7 @@ class Logger:
 
     def __init__(self) -> None:
         self.events: dict[tuple[str, str], Event] = {}
+        self.peak_bytes = 0
 
     @classmethod
     def get(cls) -> "Logger":
@@ -97,13 +102,26 @@ class ScopedLog:
         self.event = event
         self.device = torch.device(device) if device is not None else None
 
+    def _fold_peak(self) -> int:
+        """Fold the allocator's peak since its last reset into the
+        logger's running peak, restart the allocator's, return it."""
+        log = Logger.get()
+        peak = torch.cuda.max_memory_allocated(self.device)
+        log.peak_bytes = max(log.peak_bytes, peak)
+        torch.cuda.reset_peak_memory_stats(self.device)
+        return peak
+
     def __enter__(self):
+        if self.device is not None and self.device.type == "cuda":
+            self._fold_peak()
         Logger.get().start_event(self.event)
         return self
 
     def __exit__(self, *exc):
         if self.device is not None and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+            self.event.peak_bytes = max(self.event.peak_bytes,
+                                        self._fold_peak())
         Logger.get().end_event(self.event)
         return False
 

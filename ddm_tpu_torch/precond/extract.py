@@ -36,9 +36,11 @@ def extract_subdomain_dense(
     vals = vals * valid[:, :, None]
     A = vals.new_zeros((n_sub, n_pad, n_pad + 1))
     A.scatter_(2, local_cols, vals)
+    # a view of the padded rows (row stride n_pad + 1): at 3-D sizes a
+    # contiguous copy and a diag_embed would each be one more batch
     A = A[..., :n_pad]
     if unit_padding_diag:
-        A = A + torch.diag_embed((~valid).to(A.dtype))
+        A.diagonal(dim1=1, dim2=2).add_((~valid).to(A.dtype))
     return A
 
 

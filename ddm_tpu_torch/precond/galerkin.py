@@ -1,13 +1,15 @@
 """Galerkin coarse correction: x += R^T (R A R^T)^{-1} R d.
 
 Counterpart of ``ddm_tpu/precond/galerkin.py`` (reference:
-dune/ddm/galerkin_preconditioner.hh:47-363).  The coarse matrix is built from
-the overlapping subdomain pairs only (``pairs`` method),
+dune/ddm/galerkin_preconditioner.hh:47-363).  The coarse matrix is built
+from the overlapping subdomain pairs only (``pairs`` method),
 
     E[(i,k),(j,l)] = v_ik^T A^(i) v_jl,
 
 exact for bases that vanish on subdomain boundaries (every POU-finalized
-space does).  It is factored once; the apply restricts with V, solves the
+space does), or as the true Galerkin product v_ik^T A v_jl with the global
+operator (``global`` method, always exact).  It is factored once; the
+apply restricts with V, solves the
 coarse system with ``refine`` steps of iterative refinement against the
 stored E, prolongs and scatter-adds in fixed order.  With
 ``coarse_solver.precision = dd`` an explicit coarse inverse is stored as a
@@ -28,6 +30,37 @@ from ..core.sparse import SparseELL
 from ..obs.logger import scoped
 from ..solvers.direct import BatchedInverse, factor_batched, pack_inverse
 from .extract import extract_subdomain_dense, gather_subdomain, scatter_add_subdomain
+
+
+def galerkin_coarse_matrix(
+    ell: SparseELL, sub2glob: torch.Tensor, basis: CoarseBasis,
+    group: int | None = None,
+) -> torch.Tensor:
+    """True Galerkin E[(i,k),(j,l)] = v_ik^T A v_jl, (n_c, n_c) dense.
+
+    Loops over groups of subdomains j: the group's bases are placed into a
+    global multi-RHS block, multiplied by A in one SpMV, gathered back to
+    all subdomains and dotted with every basis.  ``group`` defaults to what
+    keeps the gathered (n_sub, n_pad, group * nev) block near 256 MB."""
+    n = ell.n
+    n_sub, nev, n_pad = basis.V.shape
+    V = basis.V
+    if group is None:
+        group = 2**25 // max(n_sub * n_pad * nev, 1)
+    group = max(1, min(group, n_sub))
+    cols = []
+    for g0 in range(0, n_sub, group):
+        Vg = V[g0:g0 + group]  # (g, nev, n_pad)
+        g = Vg.shape[0]
+        # within a subdomain the dofs are distinct, so this is a plain
+        # write; padding slots (zero vectors) all land in the dummy row n
+        U = V.new_zeros((n + 1, g, nev))
+        member = torch.arange(g, device=V.device)[:, None]
+        U[sub2glob[g0:g0 + group], member] = Vg.permute(0, 2, 1)
+        W = ell.mv(U[:n].reshape(n, g * nev))
+        W_sub = gather_subdomain(W, sub2glob)  # (n_sub, n_pad, g*nev)
+        cols.append(torch.einsum("skp,spl->skl", V, W_sub))
+    return torch.cat(cols, dim=2).reshape(n_sub * nev, n_sub * nev)
 
 
 def _pairs_maps(topo: DDMTopology):
@@ -110,12 +143,14 @@ def build_galerkin(
     basis: CoarseBasis,
     ptree: ParamTree | None = None,
     subtree_name: str = "coarse_solver",
+    method: str = "pairs",
 ) -> GalerkinPreconditioner:
-    """Coarse matrix (pairs method) + Cholesky factorization.  Config keys
-    (subtree ``coarse_solver``): ``type`` (mandatory; cholesky / cholmod;
-    with ``ptree`` None, cholesky — the TPU package's LU default is not
-    ported), ``refine`` (iterative-refinement steps per coarse solve,
-    default 2).
+    """Coarse matrix + factorization.  ``method``: ``pairs`` (exact for
+    boundary-vanishing bases) or ``global`` (always exact); the JAX
+    package's ``local`` formula is not ported.  Config keys (subtree
+    ``coarse_solver``): ``type`` (mandatory; cholesky / cholmod / lu /
+    umfpack / superlu; with ``ptree`` None, cholesky), ``refine``
+    (iterative-refinement steps per coarse solve, default 2).
     ``precision`` = f64|dd: dd stores an explicit coarse inverse
     (``BatchedInverse``, the CUDA default) as a double-single pair applied by
     the ``dd_matvec`` kernel — 1 + ``refine`` launches per coarse solve; the
@@ -133,19 +168,24 @@ def build_galerkin(
     precision = sub.get("precision", "f64")
     if precision not in ("f64", "dd"):
         raise ValueError(f"coarse precision '{precision}' is not ported")
-    if sub.get("matrix_method", "pairs") != "pairs" or not basis.boundary_vanishing:
-        raise NotImplementedError("only the pairs coarse matrix is ported")
+    if method not in ("pairs", "global"):
+        raise NotImplementedError(
+            f"coarse-matrix method '{method}' is not ported")
     device = ell.vals.device
     s2g = torch.as_tensor(topo.sub2glob.astype(np.int64), device=device)
     with scoped("GalerkinPrec", "build Matrix", device):
-        local_cols = torch.as_tensor(
-            extraction_map(topo, ell.cols.cpu().numpy()).astype(np.int64),
-            device=device,
-        )
-        valid = torch.as_tensor(topo.valid, device=device)
-        A_sub = extract_subdomain_dense(ell, s2g, valid, local_cols)
-        E = galerkin_coarse_matrix_pairs(A_sub, topo, basis)
-        del A_sub
+        if method == "pairs":
+            local_cols = torch.as_tensor(
+                extraction_map(topo, ell.cols.cpu().numpy()).astype(np.int64),
+                device=device,
+            )
+            valid = torch.as_tensor(topo.valid, device=device)
+            A_sub = extract_subdomain_dense(ell, s2g, valid, local_cols)
+            del local_cols
+            E = galerkin_coarse_matrix_pairs(A_sub, topo, basis)
+            del A_sub
+        else:
+            E = galerkin_coarse_matrix(ell, s2g, basis)
         E = _mask_inactive(E, basis.active)
     with scoped("GalerkinPrec", "factor A0", device):
         coarse = factor_batched(E[None], sub.get("type"))

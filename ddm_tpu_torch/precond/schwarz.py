@@ -53,8 +53,8 @@ def build_schwarz(
     ctor schwarz.hh:73-94).
 
     Config keys (subtree ``schwarz``): ``type`` = standard|restricted
-    (default restricted); ``subdomain_solver.type`` (mandatory, cholesky /
-    cholmod); ``subdomain_solver.precision`` = f64|dd (dd: double-single
+    (default restricted); ``subdomain_solver.type`` (mandatory; cholesky /
+    cholmod, or lu / umfpack / superlu); ``subdomain_solver.precision`` = f64|dd (dd: double-single
     inverse applied through kernels/ddmatvec.py, with
     ``subdomain_solver.refine_steps`` exact defect corrections, default 2).
     The TPU construction knobs ``construction`` and ``newton_rtol`` are

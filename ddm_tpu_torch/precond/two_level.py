@@ -3,8 +3,8 @@
 Counterpart of ``ddm_tpu/precond/two_level.py`` (reference:
 TwoLevelSchwarzPreconditioner, examples/pdelab_schwarz.hh:26-205): the
 fine-level Schwarz preconditioner plus a coarse space plus the Galerkin
-correction, combined additively.  The ``geneo`` and ``geneo_ring`` coarse
-spaces are ported.
+correction, combined additively or multiplicatively.  The ``pou``,
+``geneo`` and ``geneo_ring`` coarse spaces are ported.
 """
 
 from __future__ import annotations
@@ -17,6 +17,16 @@ from .schwarz import build_schwarz
 
 def build_coarse_space(p, cs_type: str, ptree: ParamTree, fine=None):
     """Dispatch on ``coarsespace.type`` (pdelab_schwarz.hh:93-141)."""
+    if cs_type == "pou":
+        from ..coarse.pou_space import pou_coarse_space, rigid_body_modes
+
+        templates = None
+        if p.disc.n_comp > 1:
+            templates = rigid_body_modes(p.disc.grid.nodes, p.disc.n_comp)
+        return pou_coarse_space(
+            p.topo, p.pou, templates=templates,
+            dirichlet_mask=p.disc.dirichlet_mask, device=p.device,
+        )
     if cs_type == "geneo":
         from ..coarse.geneo import geneo_coarse_space
 
@@ -46,7 +56,15 @@ def build_two_level(p):
             if cs_type in _CS_NEEDS_FINE else None)
     basis = build_coarse_space(p, cs_type, ptree, fine=fine)
     coarse_ptree = ptree if "coarse_solver.type" in ptree else None
-    coarse = build_galerkin(p.A, p.topo, basis, coarse_ptree)
+    # every coarse space built here is POU-finalized (vanishes on subdomain
+    # boundaries), so the pairwise-local coarse matrix is exact; a basis that
+    # clears boundary_vanishing gets the always-exact global formula
+    method = ptree.sub("coarse_solver").get("matrix_method", "pairs")
+    if method == "pairs" and not basis.boundary_vanishing:
+        method = "global"
+    coarse = build_galerkin(p.A, p.topo, basis, coarse_ptree, method=method)
     if fine is None:
         fine = build_schwarz(p.A, p.topo, p.pou, ptree)
-    return build_combined([fine, coarse], ptree)
+    mode = ptree.sub("combined_preconditioner").get("mode", "additive")
+    op = p.A if mode == "multiplicative" else None
+    return build_combined([fine, coarse], ptree, op=op)

@@ -1,13 +1,16 @@
 """Krylov solvers with ISTL-matching semantics, in torch.
 
 Counterpart of ``ddm_tpu/solvers/krylov.py`` (reference: the ISTL solver
-factory's ``cgsolver`` and ``restartedgmressolver``):
+factory's ``cgsolver``, ``restartedgmressolver`` and
+``restartedflexiblegmressolver``):
 
 * converged when defect < reduction * defect0, or defect < 1e-30 absolute;
 * CG measures the true residual every iteration (ISTL CGSolver);
 * GMRES is left-preconditioned; its defect is the preconditioned residual
   from the Givens recurrence; each restart cycle starts from the recomputed
-  preconditioned residual (ISTL RestartedGMResSolver).  The Arnoldi step is
+  preconditioned residual (ISTL RestartedGMResSolver); flexible GMRES is
+  right-preconditioned, keeps the preconditioned basis Z and measures the
+  true residual.  The Arnoldi step is
   two-pass classical Gram-Schmidt (CGS2) on the device; the small Hessenberg
   system (Givens rotations, back substitution) lives on the host, in the
   same f64 arithmetic.
@@ -37,6 +40,10 @@ class KrylovResult:
     defect0: float
     defect: float
     history: np.ndarray  # (maxit + 1,) defect per iteration, nan-padded
+    # GMRES variants: the iteration at which the Givens estimate first met
+    # the target (0: never, or CG); under verified termination the solver
+    # may go on past it
+    estimate_hit: int = 0
 
 
 def _norm(x: torch.Tensor) -> float:
@@ -74,31 +81,32 @@ def cg_solve(
                         defect0=def0, defect=defect, history=hist)
 
 
-def gmres_solve(
-    op: Callable, prec: Callable | None, b: torch.Tensor, x0: torch.Tensor,
-    reduction: float = 1e-8, maxit: int = 1000, restart: int = 30,
-    verify: bool = False,
-) -> KrylovResult:
-    """Left-preconditioned restarted GMRES (ISTL RestartedGMResSolver).
-
-    verify: after each restart cycle, terminate on the recomputed
-    preconditioned defect instead of the Givens estimate.  Needed when the
-    preconditioner apply carries reduced-precision noise (the dd subdomain
-    solve): below that noise the estimate decouples from the true residual
-    and reports false convergence."""
+def _restarted_gmres(op, prec, b, x0, reduction, maxit, restart, verify,
+                     flexible):
+    """Restarted GMRES, left-preconditioned or flexible (right-
+    preconditioned with the solution basis Z kept).  The defect is the
+    norm of ``resid(x)``: the preconditioned residual on the left, the true
+    residual in the flexible form."""
     prec = prec or (lambda d: d)
     n = b.shape[0]
-    def0 = _norm(prec(b - op(x0)))
+
+    def resid(x):
+        r = b - op(x)
+        return r if flexible else prec(r)
+
+    def0 = _norm(resid(x0))
     target = max(reduction * def0, _ABS_LIMIT)
     hist = np.full(maxit + 1, np.nan)
     hist[0] = def0
+    first_hit = []  # iteration of the estimate's first pass under the target
 
     def cycle(x, it):
         """One restart cycle of at most ``restart`` steps."""
-        w = prec(b - op(x))
+        w = resid(x)
         beta = _norm(w)
         V = b.new_zeros((restart + 1, n))
         V[0] = w / max(beta, _ABS_LIMIT)
+        Z = b.new_zeros((restart, n)) if flexible else V
         H = np.zeros((restart + 1, restart))
         cs = np.zeros(restart)
         sn = np.zeros(restart)
@@ -109,7 +117,11 @@ def gmres_solve(
         done = beta <= target
         while k < restart and not done:
             j = k
-            w = prec(op(V[j]))
+            if flexible:
+                Z[j] = prec(V[j])
+                w = op(Z[j])
+            else:
+                w = prec(op(V[j]))
             Vj = V[: j + 1]
             c1 = Vj @ w
             w = w - c1 @ Vj
@@ -136,20 +148,59 @@ def gmres_solve(
             k += 1
             hist[min(it, maxit)] = defect
             done = defect <= target or it >= maxit
+            if defect <= target and not first_hit:
+                first_hit.append(it)
         # back substitution for the k steps taken
         y = np.zeros(restart)
         for jj in range(k - 1, -1, -1):
             num = s[jj] - (H[jj] * y).sum()
             y[jj] = num / (1.0 if H[jj, jj] == 0 else H[jj, jj])
         yt = torch.as_tensor(y[:k], dtype=b.dtype, device=b.device)
-        return x + yt @ V[:k], it, defect
+        return x + yt @ Z[:k], it, defect
 
     x, it, defect = x0, 0, def0
     while defect > target and it < maxit:
-        x, it, est = cycle(x, it)
-        defect = _norm(prec(b - op(x))) if verify else est
+        x, it, defect = cycle(x, it)
+        if verify:
+            defect = _norm(resid(x))
+            if flexible:
+                # keep history and final defect consistent: under a dd
+                # preconditioner the estimate can sit far below the defect
+                hist[min(it, maxit)] = defect
     return KrylovResult(x=x, iterations=it, converged=defect <= target,
-                        defect0=def0, defect=defect, history=hist)
+                        defect0=def0, defect=defect, history=hist,
+                        estimate_hit=first_hit[0] if first_hit else 0)
+
+
+def gmres_solve(
+    op: Callable, prec: Callable | None, b: torch.Tensor, x0: torch.Tensor,
+    reduction: float = 1e-8, maxit: int = 1000, restart: int = 30,
+    verify: bool = False,
+) -> KrylovResult:
+    """Left-preconditioned restarted GMRES (ISTL RestartedGMResSolver).
+
+    verify: after each restart cycle, terminate on the recomputed
+    preconditioned defect instead of the Givens estimate.  Needed when the
+    preconditioner apply carries reduced-precision noise (the dd subdomain
+    solve): below that noise the estimate decouples from the true residual
+    and reports false convergence."""
+    return _restarted_gmres(op, prec, b, x0, reduction, maxit, restart,
+                            verify, flexible=False)
+
+
+def fgmres_solve(
+    op: Callable, prec: Callable | None, b: torch.Tensor, x0: torch.Tensor,
+    reduction: float = 1e-8, maxit: int = 1000, restart: int = 30,
+    verify: bool = False,
+) -> KrylovResult:
+    """Flexible (right-preconditioned) restarted GMRES (ISTL
+    RestartedFlexibleGMResSolver).  The recurrence tracks the true residual
+    and the preconditioner enters only through the solution basis Z, so a
+    norm-distorting or inexact preconditioner does not cap the attainable
+    accuracy as it does on the left.  ``verify``: terminate each cycle on
+    the recomputed true residual."""
+    return _restarted_gmres(op, prec, b, x0, reduction, maxit, restart,
+                            verify, flexible=True)
 
 
 SOLVERS = {
@@ -157,13 +208,15 @@ SOLVERS = {
     "cg": cg_solve,
     "restartedgmressolver": gmres_solve,
     "gmres": gmres_solve,
+    "restartedflexiblegmressolver": fgmres_solve,
+    "fgmres": fgmres_solve,
 }
 
 
 def solve_from_config(op, prec, b, x0, ptree, subtree_name: str = "solver"):
     """Dispatch like the ISTL solver factory (Dune::getSolverFromFactory).
 
-    GMRES terminates on the verified defect when ``solver.verify`` says so
+    GMRES and flexible GMRES terminate on the verified defect when ``solver.verify`` says so
     or, by default, when a subdomain or coarse solve runs in reduced
     precision.  ``solver.ortho`` (the TPU package's double-single
     orthogonalization) is accepted; orthogonalization here is always f64."""
@@ -173,7 +226,7 @@ def solve_from_config(op, prec, b, x0, ptree, subtree_name: str = "solver"):
         raise ValueError(f"solver type '{stype}' is not ported")
     kwargs = dict(reduction=sub.get("reduction", 1e-8),
                   maxit=sub.get("maxit", 1000))
-    if SOLVERS[stype] is gmres_solve:
+    if SOLVERS[stype] in (gmres_solve, fgmres_solve):
         kwargs["restart"] = sub.get("restart", 30)
         if "verify" in sub:
             kwargs["verify"] = sub.get("verify", False)

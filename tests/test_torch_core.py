@@ -41,20 +41,25 @@ def problems_32():
     return pj, pt
 
 
-@pytest.mark.parametrize("gridsize,parts,overlap", [(16, (2, 2), 1),
-                                                    (32, (4, 4), 2)])
-def test_build_topology_equals_jax(gridsize, parts, overlap):
+def _check_topology(gridsize, parts, overlap, n_comp=1):
+    """The copied topology code on ``n_comp`` dofs per node (node-major,
+    component-minor): every array equal to the JAX package's."""
     import scipy.sparse as sps
 
     g = structured_grid((gridsize, gridsize))
     part = tidx.partition_structured(g.shape, parts)
     np.testing.assert_array_equal(
         part, jidx.partition_structured(g.shape, parts))
-    n = g.n_nodes
-    r, c = element_coo_indices(g.elems)
+    n = g.n_nodes * n_comp
+    r, c = element_coo_indices(g.elems, n_comp)
     adj = sps.csr_matrix((np.ones(r.size), (r, c)), shape=(n, n))
-    M0 = tidx.dof_membership_from_elems(g.elems, part, n, part.max() + 1)
-    own = tidx.dof_owner_lowest(g.elems, part, n)
+    M0 = tidx.dof_membership_from_elems(g.elems, part, n, part.max() + 1,
+                                        n_comp=n_comp)
+    own = tidx.dof_owner_lowest(g.elems, part, n, n_comp=n_comp)
+    assert (M0 != jidx.dof_membership_from_elems(
+        g.elems, part, n, part.max() + 1, n_comp=n_comp)).nnz == 0
+    np.testing.assert_array_equal(
+        own, jidx.dof_owner_lowest(g.elems, part, n, n_comp=n_comp))
     t = tidx.build_topology(adj, M0, own, overlap)
     j = jidx.build_topology(adj, M0, own, overlap)
     for f in ("n_glob", "n_sub", "n_pad", "overlap", "bdist_cap"):
@@ -69,6 +74,23 @@ def test_build_topology_equals_jax(gridsize, parts, overlap):
     ell_cols = EllPattern.from_coo(r, c, n).cols
     np.testing.assert_array_equal(tidx.extraction_map(t, ell_cols),
                                   jidx.extraction_map(j, ell_cols))
+    return t
+
+
+@pytest.mark.parametrize("gridsize,parts,overlap", [(16, (2, 2), 1),
+                                                    (32, (4, 4), 2)])
+def test_build_topology_equals_jax(gridsize, parts, overlap):
+    _check_topology(gridsize, parts, overlap)
+
+
+def test_build_topology_two_components_equals_jax():
+    """A 2-component 16^2 grid, 4 subdomains, overlap 2: the same
+    ``sub2glob``, ``valid`` and owners as the JAX package, and both
+    components of a node always share their subdomains."""
+    t = _check_topology(16, (2, 2), 2, n_comp=2)
+    assert t.n_glob == 2 * 17 * 17
+    ids = t.sub2glob[0][t.valid[0]]
+    np.testing.assert_array_equal(ids[0::2] + 1, ids[1::2])
 
 
 @pytest.mark.parametrize("k", [0, 3])

@@ -26,9 +26,11 @@ torch.set_num_threads(2)
 SHAPES = [(4, 256, 200), (2, 640, 640), (3, 177, 177)]
 # one-matrix and low-batch shapes, where the launch plan splits the columns
 # (the dd coarse solve's (1, 2048, 2048), a ragged one, and small matrices
-# whose clusters have 3, 5, 6 and 7 blocks): card tests only
+# whose clusters have 3, 5, 6 and 7 blocks), and the 3-D fine-level sizes
+# (n_pad 1000 at overlap 1, 1728 at overlap 2): card tests only
 CARD_SHAPES = [(1, 2048, 2048), (1, 1001, 1001), (2, 1536, 1536),
-               (1, 12, 12), (1, 37, 37), (1, 24, 24), (1, 100, 100)]
+               (1, 12, 12), (1, 37, 37), (1, 24, 24), (1, 100, 100),
+               (3, 1000, 1000), (2, 1728, 1728)]
 N_SM = 132  # an H100 SXM
 
 
