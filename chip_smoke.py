@@ -19,8 +19,12 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
 4. small-input references, each on the card against the exact f64 slice
    on the CPU (iterations within 2, solutions within 1e-6): the geneo dd
    and the geneo_ring (R-dd) slices at islands 32^2 / 16 subdomains, the
-   3-D hex dd slice at islands 12^3 / 8 subdomains, overlap 2, and the
-   elasticity dd slice at steel-rubber 32^2 / 16 subdomains;
+   3-D hex dd slice at islands 12^3 / 8 subdomains, overlap 2, the
+   elasticity dd slice at steel-rubber 32^2 / 16 subdomains, the
+   unstructured dd slice on the L-shape below refined once / 8 RCB
+   subdomains, the DG dd slice at 16^2 / (2, 2), overlap 1, and tet
+   elasticity (the steel-rubber bar on 8 x 2 x 3 Kuhn-tetrahedron cells,
+   4 RCB subdomains, three displacement components);
 5. the main paths, nev 8, Cholesky coarse solve, restart 50 to 1e-8 with
    verified termination, through the user entry points ``setup_problem ->
    build_preconditioner -> solve -> solution``, each run cold then warm,
@@ -53,6 +57,25 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
 
    * ``elast_f64`` and ``elast_dd`` (dd subdomain and coarse inverses);
 
+   the unstructured paths: islands on the L-shape [0,1]^2 minus
+   (0.5,1]^2, the 726 triangles of a 22 x 22-cell simplex grid outside the
+   removed quadrant, written as a gmsh v2.2 file, read through
+   ``make_grid`` (``meshfile``) and refined 4 times (185,856 triangles,
+   93,633 P1 dofs), 128 subdomains by recursive coordinate bisection,
+   overlap 2, geneo, GMRES(50):
+
+   * ``unstr_f64`` and ``unstr_dd`` (dd subdomain and coarse inverses: the
+     kernel at (128, n_pad, n_pad) with a ragged n_pad and (1, 1024, 1024));
+
+   and the DG paths: the convection-diffusion example's problem and
+   settings (Q1 SIPG, overlap 1, multiplicative GenEO with nev 6, LU
+   subdomain and coarse solvers, standard POU) on 192^2 quads (147,456
+   dofs), 144 subdomains (12, 12), GMRES(50), through the example's
+   ``setup``:
+
+   * ``dg_f64`` and ``dg_dd`` (dd subdomain and coarse inverses: the kernel
+     on nonsymmetric LU inverses at (144, 1280, 1280) and (1, 864, 864));
+
 6. after each dd path's warm run, the kernel against its plain version at
    that path's shapes, on the path's own inverses, with CUDA-event
    timings (and, for the ring paths, the f64 and dd fine-level apply
@@ -82,8 +105,11 @@ by a write pass (as in phase 6) and by a read pass.
 """
 
 import json
+import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -96,11 +122,17 @@ import torch
 # hex_ov1_dd's count of this run (set when that path has run).  Elasticity
 # 256^2/256 under flexible GMRES: the JAX package's Givens estimate meets
 # the target at iteration 46; here the estimate must meet it by 46 + 3 and
-# the verified solve end within 100.
+# the verified solve end within 100.  The unstructured and DG paths have no
+# full-size count of the JAX package (its full-size runs do not fit a
+# shared CPU host): their f64 paths are held to the stated bounds below,
+# and each dd path to its f64 path's count of this run + 2 (set when that
+# path has run).
 MAX_ITERS = {"geneo_dd": 16 + 2, "ring_f64": 15 + 2, "ring_dd": 15 + 2,
-             "hex_ov1_dd": 19 + 2, "elast_f64": 100, "elast_dd": 100}
+             "hex_ov1_dd": 19 + 2, "elast_f64": 100, "elast_dd": 100,
+             "unstr_f64": 30, "dg_f64": 50}
 ESTIMATE_HIT_MAX = 46 + 3
-TRUE_RES_MAX = {"islands": 1e-7, "hex": 1e-7, "elast": 2e-8}
+TRUE_RES_MAX = {"islands": 1e-7, "hex": 1e-7, "elast": 2e-8, "unstr": 1e-7,
+                "dg": 1e-7, "tet": 2e-8}
 KERNEL_VS_PLAIN_TOL = 1e-6  # plain version sums f32 partial products
 KERNEL_VS_F64_TOL = 1e-12  # kernel accumulates in f64
 
@@ -125,12 +157,22 @@ PATHS = {
     "hex_ov2_dd": ("hex", "geneo", 2, DD),
     "elast_f64": ("elast", "geneo", 2, {}),
     "elast_dd": ("elast", "geneo", 2, DD),
+    "unstr_f64": ("unstr", "geneo", 2, {}),
+    "unstr_dd": ("unstr", "geneo", 2, DD),
+    "dg_f64": ("dg", "geneo", 1, {}),
+    "dg_dd": ("dg", "geneo", 1, DD),
+    "tet_f64": ("tet", "geneo", 2, {}),
+    "tet_dd": ("tet", "geneo", 2, DD),
 }
-# problem kind -> (cells per axis, parts) at full and at small size
+# problem kind -> (size, decomposition) at full and at small size: cells per
+# axis and parts, except for the L-shape (refinements of its mesh file and
+# the number of RCB subdomains) and the tet bar (fixed cells, RCB)
 FULL = {"islands": (384, (16, 16)), "hex": (56, (8, 8, 8)),
-        "elast": (256, (16, 16))}
+        "elast": (256, (16, 16)), "unstr": (4, 128), "dg": (192, (12, 12))}
 SMALL = {"islands": (32, (4, 4)), "hex": (12, (2, 2, 2)),
-         "elast": (32, (4, 4))}
+         "elast": (32, (4, 4)), "unstr": (1, 8), "dg": (16, (2, 2)),
+         "tet": ((8, 2, 3), 4)}
+LSHAPE_CELLS = 22  # coarse L-shape: 22 x 22 cells, the 11 x 11 quadrant removed
 
 
 def fail(msg):
@@ -141,46 +183,123 @@ def rel_err(y, ref):
     return float((y - ref).abs().max() / ref.abs().max())
 
 
-def path_ptree(api, path, gridsize):
+def write_lshape_msh(path, cells=LSHAPE_CELLS):
+    """The L-shape [0,1]^2 minus (0.5,1]^2 as a gmsh v2.2 ASCII file: the
+    triangles of a cells x cells simplex grid outside the removed quadrant
+    (the reader drops the nodes no triangle uses).  Returns the number of
+    triangles."""
+    from ddm_tpu_torch.fem.grids import structured_grid
+
+    g = structured_grid((cells, cells), simplex=True)
+    c = g.elem_centroids()
+    tris = g.elems[~((c[:, 0] > 0.5) & (c[:, 1] > 0.5))]
+    lines = ["$MeshFormat", "2.2 0 8", "$EndMeshFormat", "$Nodes",
+             str(g.n_nodes)]
+    lines += [f"{k + 1} {float(x)!r} {float(y)!r} 0.0"
+              for k, (x, y) in enumerate(g.nodes)]
+    lines += ["$EndNodes", "$Elements", str(len(tris))]
+    lines += [f"{k + 1} 2 2 0 1 {a + 1} {b + 1} {c_ + 1}"
+              for k, (a, b, c_) in enumerate(tris)]
+    lines.append("$EndElements")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return len(tris)
+
+
+_MESH_DIR = []
+
+
+def lshape_file():
+    """The L-shape mesh file, written on first use into a temporary
+    directory that is removed when the process ends."""
+    if not _MESH_DIR:
+        _MESH_DIR.append(tempfile.TemporaryDirectory(prefix="chip_smoke_"))
+        path = os.path.join(_MESH_DIR[0].name, "lshape.msh")
+        n = write_lshape_msh(path)
+        print(f"L-shape mesh: {n} triangles written to a gmsh v2.2 file",
+              flush=True)
+    return os.path.join(_MESH_DIR[0].name, "lshape.msh")
+
+
+def path_ptree(api, path, size):
     kind, coarse, overlap, keys = PATHS[path]
-    pt = api.default_ptree()
-    pt["gridsize"] = gridsize
+    if kind == "dg":
+        from ddm_tpu_torch.examples.convectiondiffusiondg import dg_ptree
+
+        pt = dg_ptree([])  # the example's settings: LU, nev 6, standard POU
+    else:
+        pt = api.default_ptree()
+        pt["problem"] = "islands"
+        pt[f"{coarse}.eigensolver.nev"] = 8
+        pt["coarse_solver.type"] = "lu" if kind == "tet" else "cholesky"
+    if kind == "unstr":
+        pt["meshfile"] = lshape_file()
+        pt["refine"] = size
+    else:
+        pt["gridsize"] = size
     pt["overlap"] = overlap
-    pt["problem"] = "islands"
-    if kind == "elast":
+    if kind == "dg":
+        # unscaled, the 1e7 diffusion contrast puts the residual floor of
+        # an exact f64 solve at 1.6e-7 (96^2) and above: read it scaled
+        pt["equilibrate"] = True
+    if kind in ("elast", "tet", "dg"):
         # left-preconditioned GMRES converges in the preconditioned norm
-        # only: this preconditioner distorts norms by the stiffness contrast
+        # only: these preconditioners distort norms by the coefficient
+        # contrast (the DG paths' true residual stays at 1e-4 there)
         pt["solver.type"] = "restartedflexiblegmressolver"
     pt["solver.reduction"] = 1e-8
     pt["solver.restart"] = 50
     pt["solver.maxit"] = 400
     pt["solver.verify"] = True
     pt["coarsespace.type"] = coarse
-    pt[f"{coarse}.eigensolver.nev"] = 8
-    pt["coarse_solver.type"] = "cholesky"
     for k, v in keys.items():
         pt[k] = v
     return pt
 
 
-def path_problem(api, path, gridsize, parts, device):
-    """``setup_problem`` for one path: the islands problem on the unit
-    square or cube, or the steel-rubber strip on [0,3]x[0,1] with two
-    displacement components per node."""
+def path_problem(api, path, size, parts, device):
+    """The problem of one path through its entry point: ``setup_problem``
+    for the islands problem on the unit square or cube or on the L-shape
+    mesh file (``parts`` an int: that many RCB subdomains), the
+    steel-rubber strip on [0,3]x[0,1] or the bar on Kuhn tetrahedra with
+    one displacement component per axis; the DG example's ``setup``."""
     from ddm_tpu_torch.fem import problems
     from ddm_tpu_torch.fem.grids import structured_grid
 
-    pt = path_ptree(api, path, gridsize)
-    if PATHS[path][0] == "elast":
-        grid = structured_grid((gridsize, gridsize), (0, 0), (3.0, 1.0))
+    kind = PATHS[path][0]
+    pt = path_ptree(api, path, size)
+    if kind == "dg":
+        from ddm_tpu_torch.examples.convectiondiffusiondg import setup
+
+        return setup(pt, device, parts=parts)
+    if kind == "elast":
+        grid = structured_grid((size, size), (0, 0), (3.0, 1.0))
         return api.setup_problem(pt, problem=problems.steel_rubber_2d(),
                                  grid=grid, parts=parts, n_comp=2,
+                                 device=device)
+    if kind == "tet":
+        grid = structured_grid(size, (0, 0, 0), (10.0, 1.0, 1.5),
+                               simplex=True)
+        return api.setup_problem(pt, problem=problems.steel_rubber_bar(),
+                                 grid=grid, n_sub=parts, n_comp=3,
+                                 device=device)
+    if kind == "unstr":
+        return api.setup_problem(pt, grid=api.make_grid(pt), n_sub=parts,
                                  device=device)
     return api.setup_problem(pt, grid=api.make_grid(pt, dim=len(parts)),
                              parts=parts, device=device)
 
 
-def run_path(path, gridsize, parts, device):
+def size_label(path, size, parts):
+    kind = PATHS[path][0]
+    if kind == "unstr":
+        return f"L-shape refine {size} / {parts} RCB"
+    if kind == "tet":
+        return f"tet bar {size[0]}x{size[1]}x{size[2]} / {parts} RCB"
+    return f"{size}^{len(parts)}/{math.prod(parts)}"
+
+
+def run_path(path, size, parts, device):
     """Drive one path once through the entry points, with the kernel's
     launch counts and the ring's route counts zeroed just before and read
     just after.  Returns a dict of the run's objects and counts."""
@@ -199,7 +318,7 @@ def run_path(path, gridsize, parts, device):
     for k in ring.ROUTES:
         ring.ROUTES[k] = 0
     t0 = time.perf_counter()
-    p = path_problem(api, path, gridsize, parts, device)
+    p = path_problem(api, path, size, parts, device)
     M = api.build_preconditioner(p)
     res = api.solve(p, M)
     u = api.solution(p, res)
@@ -445,13 +564,13 @@ def profile_paths(paths):
     print(f"device: {torch.cuda.get_device_name(0)} | torch {torch.__version__}",
           flush=True)
     for path in paths or ["geneo_dd", "ring_f64", "ring_dd"]:
-        gridsize, parts = FULL[PATHS[path][0]]
-        p = path_problem(api, path, gridsize, parts, dev)
+        size, parts = FULL[PATHS[path][0]]
+        p = path_problem(api, path, size, parts, dev)
         res = api.solve(p, api.build_preconditioner(p))
         del p, res
         print(f"{path} (warm, profiled):", flush=True)
         p = profiled("setup_problem", lambda: path_problem(
-            api, path, gridsize, parts, dev))
+            api, path, size, parts, dev))
         M = profiled("build_preconditioner", lambda: api.build_preconditioner(p))
         res = profiled("solve", lambda: api.solve(p, M))
         print(f"  iterations {res.iterations}, converged {res.converged}",
@@ -564,15 +683,18 @@ def main():
     # -- 4. small-input references: card vs CPU exact f64 -------------------
     cpu = torch.device("cpu")
     for path, ref in (("geneo_dd", "geneo_f64"), ("ring_dd", "ring_f64"),
-                      ("hex_ov2_dd", "hex_ov2_f64"), ("elast_dd", "elast_f64")):
-        gridsize, parts = SMALL[PATHS[path][0]]
-        g = run_path(path, gridsize, parts, dev)
-        c = run_path(ref, gridsize, parts, cpu)
+                      ("hex_ov2_dd", "hex_ov2_f64"), ("elast_dd", "elast_f64"),
+                      ("unstr_dd", "unstr_f64"), ("dg_dd", "dg_f64"),
+                      ("tet_dd", "tet_f64")):
+        size, parts = SMALL[PATHS[path][0]]
+        g = run_path(path, size, parts, dev)
+        c = run_path(ref, size, parts, cpu)
         e_small = rel_err(g["u"].cpu(), c["u"])
         n_dd = 3 * g["fine_applies"]
         if "coarse_solver.precision" in PATHS[path][3]:
             n_dd += 3 * g["coarse_applies"]
-        print(f"small {gridsize}^{len(parts)}/{g['p'].topo.n_sub} {path}: card "
+        print(f"small {size_label(path, size, parts)} {path} (n_pad "
+              f"{g['p'].topo.n_pad}): card "
               f"{g['res'].iterations} its (true rel residual "
               f"{g['true_res']:.3e}), cpu {ref} {c['res'].iterations} its, "
               f"solution rel diff {e_small:.3e}, launches {g['launches']} = "
@@ -588,16 +710,19 @@ def main():
     flush_buf = torch.empty(2 * 50 * 2**20, dtype=torch.uint8, device=dev)
     launches, entries = {}, []
     for path in ("geneo_dd", "ring_f64", "ring_dd", "hex_ov1_dd",
-                 "hex_ov2_f64", "hex_ov2_dd", "elast_f64", "elast_dd"):
-        gridsize, parts = FULL[PATHS[path][0]]
+                 "hex_ov2_f64", "hex_ov2_dd", "elast_f64", "elast_dd",
+                 "unstr_f64", "unstr_dd", "dg_f64", "dg_dd"):
+        size, parts = FULL[PATHS[path][0]]
         for run in ("cold", "warm"):
             r = None  # free the last run before this one's peak is taken
-            r = run_path(path, gridsize, parts, dev)
+            r = run_path(path, size, parts, dev)
             check_path(path, run, r)
         launches[path] = r["launches"]
         if path == "hex_ov1_dd":
             for ov2 in ("hex_ov2_f64", "hex_ov2_dd"):
                 MAX_ITERS[ov2] = r["res"].iterations + 2
+        if path in ("unstr_f64", "dg_f64"):
+            MAX_ITERS[path.replace("f64", "dd")] = r["res"].iterations + 2
         if path in ("ring_f64", "ring_dd"):
             # the fine apply of both ring paths: the f64 inverse is read once
             # per apply (1.47 GB), hi + lo three times (3 x 1.47 GB)

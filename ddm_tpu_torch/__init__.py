@@ -15,8 +15,9 @@ Conventions:
 * batches are written out as a leading subdomain dimension, loops are
   Python loops (no jit/vmap/pytrees);
 * the framework-neutral numpy modules ``config.py``, ``core/indexmaps.py``,
-  ``fem/grids.py`` and ``eigen/params.py`` are copies of their ``ddm_tpu``
-  counterparts, so both packages build the same subdomains;
+  ``fem/grids.py``, ``fem/msh.py`` and ``eigen/params.py`` are copies of
+  their ``ddm_tpu`` counterparts, so both packages build the same
+  subdomains;
 * a hand-written CUDA kernel runs only on CUDA tensors; CPU tensors take
   its plain PyTorch version.  There is no fallback from one to the other.
 

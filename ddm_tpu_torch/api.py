@@ -21,6 +21,7 @@ from .core.sparse import SparseELL, jacobi_equilibrate
 from .fem import problems as problems_mod
 from .fem.discretize import Discretization
 from .fem.grids import structured_grid
+from .fem.msh import read_msh
 from .obs.logger import scoped
 from .solvers.krylov import KrylovResult, solve_from_config
 
@@ -61,13 +62,16 @@ class DDMProblem:
 
 
 def make_grid(ptree: ParamTree, dim: int = 2):
-    """Structured grid with ``gridsize`` cells per axis, refined ``refine``
-    times (reference: ddm_utilities.hh:33-171 make_grid); mesh files are
-    not ported."""
-    if ptree.get("meshfile", ""):
-        raise NotImplementedError("meshfile grids are not ported")
-    gs = ptree.get("gridsize", 64)
-    grid = structured_grid((gs,) * dim)
+    """Grid from config (reference: ddm_utilities.hh:33-171 make_grid): the
+    gmsh v2.2 file ``meshfile`` if given, else a structured grid with
+    ``gridsize`` cells per axis; refined ``refine`` times (simplex meshes
+    by edge midpoints)."""
+    meshfile = ptree.get("meshfile", "")
+    if meshfile:
+        grid = read_msh(meshfile)
+    else:
+        gs = ptree.get("gridsize", 64)
+        grid = structured_grid((gs,) * dim)
     refine_n = ptree.get("refine", 0)
     if refine_n:
         from .fem.grids import refine

@@ -144,9 +144,11 @@ def energy_minimal_extension_sparse(
     free_mask: np.ndarray,
     U_bnd: torch.Tensor,
     local_cols: np.ndarray | None = None,
+    solver_type: str = "cholesky",
 ) -> torch.Tensor:
     """Energy-minimal extension extracted straight from the global sparse
-    operator and factored at compact free-set size (the direct route).
+    operator and factored at compact free-set size (the direct route), by
+    ``solver_type`` (``lu`` for a nonsymmetric operator).
 
     Equals ``energy_minimal_extension(A_dir, free, U_bnd)`` with A_dir the
     overlapping Dirichlet extraction of ``ell``, without building the dense
@@ -158,7 +160,7 @@ def energy_minimal_extension_sparse(
     Ub = torch.where(f[:, None, :], 0.0, U_bnd)
     R = -torch.einsum("sfp,skp->sfk", rect, Ub)  # (n_sub, f_pad, nev)
     del rect
-    Z = factor_batched(Aff, "cholesky", mode="factors").solve(R)
+    Z = factor_batched(Aff, solver_type, mode="factors").solve(R)
     Z = Z.mT * fval[:, None, :]
     return Ub + expand_rows(Z, pos)
 

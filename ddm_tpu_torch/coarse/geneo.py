@@ -9,9 +9,11 @@ with A_neu the subdomain Neumann matrix, B_neu the overlap-region Neumann
 matrix and D the partition of unity, then POU-scale and normalize the kept
 eigenvectors.  All subdomain pencils solve as one batched dense GEVP.
 
-The Neumann matrices are assembled by summing the element matrices inside
-each (region of each) subdomain — the TPU package's "sum" path; its
-subtraction fast path needs the rect canvas, which is not ported.
+The Neumann matrices are assembled by summing the assembly stamps (element
+matrices; for DG also face blocks) inside each (region of each) subdomain —
+the TPU package's "sum" path; its subtraction fast path needs the rect
+canvas, which is not ported.  Indefinite pencils (DG) take the eigensolver's
+``spd=False`` branch.
 """
 
 from __future__ import annotations
@@ -34,15 +36,21 @@ from ..precond.extract import gather_subdomain
 from .basis import CoarseBasis, finalize_basis
 
 
-def _stamp_sum(p, dof_mask) -> torch.Tensor:
-    """Dense (n_sub, n_pad, n_pad) sum of the element matrices fully inside
+def _stamp_sum(p, groups, dof_mask) -> torch.Tensor:
+    """Dense (n_sub, n_pad, n_pad) sum of the assembly stamps fully inside
     each subdomain (or inside its ``dof_mask`` region, host bool
-    (n_sub, n_pad)), in the variables of ``p.A`` (equilibration applied)."""
-    disc, topo, device = p.disc, p.topo, p.device
-    (dofs, Ke), = disc.neumann_stamps()
-    se, sl = subdomain_stamp_lists(dofs, topo, dof_mask=dof_mask)
-    plan = neumann_plan(se, sl, dofs.shape[0], topo.n_pad, device)
-    A = neumann_dense(Ke, plan, topo.n_sub, topo.n_pad)
+    (n_sub, n_pad)), in the variables of ``p.A`` (equilibration applied).
+    ``groups`` is ``disc.neumann_stamps()``: each group of (dof tuples,
+    blocks) goes through its own fixed-order plan, and the groups add in
+    list order."""
+    topo, device = p.topo, p.device
+    A = None
+    for dofs, K in groups:
+        se, sl = subdomain_stamp_lists(dofs, topo, dof_mask=dof_mask)
+        plan = neumann_plan(se, sl, dofs.shape[0], topo.n_pad, device)
+        part = neumann_dense(K, plan, topo.n_sub, topo.n_pad)
+        A = part if A is None else A.add_(part)
+        del part, plan
     if p.scale is not None:
         sub2glob = torch.as_tensor(topo.sub2glob.astype(np.int64), device=device)
         A = scale_matrix_with_pou(A, gather_subdomain(p.scale, sub2glob),
@@ -66,8 +74,10 @@ def neumann_matrices(p):
     2*overlap, reference NeumannRegion::Overlap)."""
     topo = p.topo
     with scoped("Eigensolver", "assemble Neumann", p.device):
-        A_neu = _stamp_sum(p, None)
-        B_neu = _stamp_sum(p, topo.bdist <= 2 * topo.overlap)
+        groups = p.disc.neumann_stamps()
+        A_neu = _stamp_sum(p, groups, None)
+        B_neu = _stamp_sum(p, groups, topo.bdist <= 2 * topo.overlap)
+        del groups
         dmask_sub = dirichlet_mask_sub(p)
         valid = torch.as_tensor(topo.valid, device=p.device)
         # both batches are fresh sums: eliminate in place
@@ -84,7 +94,7 @@ def region_neumann(p, dof_mask) -> torch.Tensor:
     size with zeros outside the region, Dirichlet rows/cols eliminated
     (reference: the ring assembly path, examples/pdelab_helper.hh:343-396;
     the JAX package's ``method="sum"``)."""
-    A = _stamp_sum(p, np.asarray(dof_mask, bool))
+    A = _stamp_sum(p, p.disc.neumann_stamps(), np.asarray(dof_mask, bool))
     return eliminate_dirichlet_dense(A, dirichlet_mask_sub(p), inplace=True)
 
 
@@ -96,6 +106,7 @@ def geneo_coarse_space(p, ptree: ParamTree) -> CoarseBasis:
     C = scale_matrix_with_pou(B_neu, pou, inplace=True)
     del B_neu
     with scoped("Eigensolver", "solve GEVP", p.device):
-        _, V, active = solve_gevp(A_neu, C, params)
+        _, V, active = solve_gevp(A_neu, C, params,
+                                  spd=getattr(p.disc, "definite", True))
     valid = torch.as_tensor(p.topo.valid, device=p.device)
     return finalize_basis(V, pou, valid, active)

@@ -62,8 +62,9 @@ def _ring_extension(p, ptree, ext_cfg, ext_free, data, fine, local_cols=None):
       Each attempt is verified (its largest relative residual is read on the
       host) and escalates mixed -> f64 PCG -> direct when it misses
       ``tolerance``; without a usable inverse the direct route runs at once.
-    * ``direct``: batched Cholesky of the free block at compact size (the
-      reference's dedicated factorization, energy_minimal_extension.hh:78-88).
+    * ``direct``: batched Cholesky (LU when the discretization is not
+      definite) of the free block at compact size (the reference's dedicated
+      factorization, energy_minimal_extension.hh:78-88).
     """
     mode = ext_cfg.get("mode", "auto")
     accept = float(ext_cfg.get("tolerance", 1e-8))
@@ -92,6 +93,7 @@ def _ring_extension(p, ptree, ext_cfg, ext_free, data, fine, local_cols=None):
     ROUTES["direct"] += 1
     return energy_minimal_extension_sparse(
         p.A, p.topo, ext_free, data, local_cols=local_cols,
+        solver_type="cholesky" if getattr(p.disc, "definite", True) else "lu",
     )
 
 

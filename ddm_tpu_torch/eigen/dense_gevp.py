@@ -12,9 +12,13 @@ solve at once through the inverted-pencil congruence transform
     eigh(S) -> mu (ascending),  lambda = 1/mu - sigma,  v = L^{-T} w,
 
 so the largest mu are the smallest lambda.  ``sigma`` is the exact spectral
-C-shift of ``EigensolverParams.shift``.  The TPU package's f32 seed,
-staged whitening and subspace refinement were TPU speed paths and are left
-out; ``eigensolver.precision``/``whiten``/``seed_*`` keys are accepted and
+C-shift of ``EigensolverParams.shift``.  For indefinite A (``spd=False``:
+DG Neumann sums, which lose cross-boundary penalty coupling) the congruence
+factor is A^{-1/2} = diag(max(d, eps)^{-1/2}) Q^T from an ``eigh`` of A's
+symmetric part instead of a Cholesky factor: negative A-modes are clipped
+to eps and surface as small lambda, i.e. they join the coarse space.  The
+TPU package's f32 seed, staged whitening and subspace refinement were TPU
+speed paths and are left out; ``eigensolver.precision``/``whiten``/``seed_*`` keys are accepted and
 ignored.  ``torch.linalg.eigh`` is a plain library call, as the JAX package
 leaves its eigh to XLA.
 """
@@ -48,9 +52,10 @@ def solve_gevp_dense(
     C: torch.Tensor,
     params: EigensolverParams,
     reg: float = 1e-12,
+    spd: bool = True,
 ):
-    """Solve the batched SPD pencil (A, C), keeping the smallest-lambda
-    eigenpairs.
+    """Solve the batched pencil (A, C), keeping the smallest-lambda
+    eigenpairs; ``spd=False`` takes the eigendecomposition factor of A.
 
     A, C: (n_sub, p, p) symmetric.  Returns (lam (n_sub, m), V (n_sub, m, p)
     eigenvectors as rows, active (n_sub, m) bool) with m = params.max_kept.
@@ -65,13 +70,20 @@ def solve_gevp_dense(
     # regularization scaled by the mean diagonal
     scale = torch.mean(torch.abs(torch.diagonal(A, dim1=1, dim2=2)), dim=1)
     eps = reg * torch.clamp(scale, min=1.0)
-    eye = torch.eye(p, dtype=A.dtype, device=A.device)
-    Areg = A.clone()
-    Areg.diagonal(dim1=1, dim2=2).add_(eps[:, None])
-    L = torch.linalg.cholesky(Areg)
-    del Areg
-    Linv = torch.linalg.solve_triangular(L, eye.expand_as(A), upper=False)
-    del L
+    if spd:
+        eye = torch.eye(p, dtype=A.dtype, device=A.device)
+        Areg = A.clone()
+        Areg.diagonal(dim1=1, dim2=2).add_(eps[:, None])
+        L = torch.linalg.cholesky(Areg)
+        del Areg
+        Linv = torch.linalg.solve_triangular(L, eye.expand_as(A), upper=False)
+        del L
+    else:
+        d, Q = torch.linalg.eigh(0.5 * (A + A.mT))
+        d = torch.clamp(d, min=eps[:, None])
+        # any square root serves the congruence: A^{-1/2} = d^{-1/2} Q^T
+        Linv = Q.mT / torch.sqrt(d)[:, :, None]
+        del d, Q
     S = Linv @ C @ Linv.mT
     S = 0.5 * (S + S.mT)
     mu, Wt = torch.linalg.eigh(S)

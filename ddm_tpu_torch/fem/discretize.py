@@ -1,9 +1,11 @@
 """Discretization driver: grid + problem -> global system + DDM inputs.
 
 Counterpart of ``ddm_tpu/fem/discretize.py`` (reference: GenericDDMProblem,
-examples/generic_ddm_problem.hh:48-407) for nodal Q1 problems: scalar
-diffusion (``n_comp = 1``) or vector-valued elasticity (``n_comp = d``, dof
-= node * n_comp + component).  The constrained system is the correction form
+examples/generic_ddm_problem.hh:48-407) for nodal P1/Q1 problems on
+triangles, tetrahedra, quadrilaterals and hexahedra: scalar
+convection-diffusion (``n_comp = 1``) or vector-valued elasticity
+(``n_comp = d``, dof = node * n_comp + component).  The JAX package's
+degree-2 spaces are not ported.  The constrained system is the correction form
 
     A_c z = b - A g,   rhs zeroed at Dirichlet dofs,  u = g + z
 
@@ -21,7 +23,7 @@ import torch
 from ..core.sparse import EllPattern, SparseELL, SumPlan, eliminate_dirichlet
 from .assemble import (
     ElementQuadrature,
-    assemble_diffusion,
+    assemble_convection_diffusion,
     assemble_linear_elasticity,
     element_coo_indices,
     element_dofs,
@@ -31,8 +33,12 @@ from .problems import ElasticityProblem, Problem
 
 
 class Discretization:
-    """Nodal Q1 discretization of ``problem`` on ``grid`` with ``n_comp``
+    """Nodal P1/Q1 discretization of ``problem`` on ``grid`` with ``n_comp``
     unknowns per node; the device tensors it makes live on ``device``."""
+
+    #: subdomain Neumann matrices are SPSD (conforming elements are
+    #: elementwise PSD); DG discretizations set this False
+    definite = True
 
     def __init__(self, grid: Grid, problem: Problem | ElasticityProblem,
                  device, n_comp: int = 1):
@@ -78,16 +84,24 @@ class Discretization:
         return torch.where(self.dirichlet_mask, g, 0.0)
 
     # -- assembly ----------------------------------------------------------
-    def element_matrices(self):
-        """Batched (Ke, fe) of the problem, computed once."""
-        if self._Ke is None:
-            p = self.problem
-            if isinstance(p, ElasticityProblem):
-                self._Ke = assemble_linear_elasticity(
-                    self.quad, self.xe, p.lam, p.mu, p.f)
-            else:
-                self._Ke = assemble_diffusion(self.quad, self.xe, p.alpha, p.f)
-        return self._Ke
+    def element_matrices(self, problem=None, elems: np.ndarray | None = None):
+        """Batched (Ke, fe) of ``problem`` (default: the discretization's
+        own, computed once and kept), on the element-id subset ``elems``
+        if given."""
+        p = problem or self.problem
+        cacheable = elems is None and p is self.problem
+        if cacheable and self._Ke is not None:
+            return self._Ke
+        xe = self.xe if elems is None else self.xe[torch.as_tensor(
+            np.asarray(elems), device=self.device)]
+        if isinstance(p, ElasticityProblem):
+            out = assemble_linear_elasticity(self.quad, xe, p.lam, p.mu, p.f)
+        else:
+            out = assemble_convection_diffusion(self.quad, xe, p.alpha, p.b,
+                                                p.c, p.f)
+        if cacheable:
+            self._Ke = out
+        return out
 
     def assemble(self) -> tuple[SparseELL, torch.Tensor]:
         """Unconstrained global (A, b)."""
@@ -109,10 +123,22 @@ class Discretization:
         membership and ownership for the DDM topology."""
         return element_dofs(self.grid.elems, self.n_comp)
 
+    @property
+    def stamps_cover_operator(self) -> bool:
+        """True when :meth:`neumann_stamps` sums exactly to the assembled
+        global operator (before elimination): the element sum of a problem
+        that is already symmetric."""
+        return getattr(self.problem, "symmetric", True) is not False
+
     def neumann_stamps(self):
         """Assembly stamps for subdomain Neumann matrices: one group of
-        (dof tuples (n_e, nl) host, element matrices (n_e, nl, nl))."""
-        Ke, _ = self.element_matrices()
+        (dof tuples (n_e, nl) host, element matrices (n_e, nl, nl)).  A
+        nonsymmetric problem stamps its symmetrized (elliptic) operator,
+        as the two-operator machinery of generic_ddm_problem.hh:169-220."""
+        p = self.problem
+        if getattr(p, "symmetric", True) is False:
+            p = p.symmetrized()
+        Ke, _ = self.element_matrices(p)
         return [(self.dof_tuples(), Ke)]
 
     def adjacency(self) -> sps.csr_matrix:

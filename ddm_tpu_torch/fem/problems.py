@@ -2,6 +2,7 @@
 
 Counterpart of ``ddm_tpu/fem/problems.py`` (reference: examples/poisson.hh
 PoissonModelProblem / IslandsModelProblem, examples/poisson_coefficient.lua,
+examples/convection_diffusion_coefficient.lua, examples/convectiondiffusiondg.hh,
 examples/coefficient.lua + linearelasticity.{cc,hh}).
 Callables are vectorized: coordinates arrive as (..., d) float64 tensors and
 return (...) tensors on the same device ((..., d) for vector fields).
@@ -35,16 +36,27 @@ def _everywhere(x):
 
 @dataclass
 class Problem:
-    """Scalar diffusion problem description: a(u,v) = ∫ alpha ∇u·∇v,
-    rhs ∫ f v, u = g on the Dirichlet part of the boundary selected by
-    ``is_dirichlet``.  (The TPU package's convection and reaction terms are
-    not ported.)"""
+    """Scalar convection-diffusion problem description:
+    a(u,v) = ∫ alpha ∇u·∇v + (b·∇u) v + c u v, rhs ∫ f v, u = g on the
+    Dirichlet part of the boundary selected by ``is_dirichlet``.  ``b``
+    (a (..., d) field) and ``c`` are None when absent."""
 
     alpha: Callable = _ones
+    b: Callable | None = None
+    c: Callable | None = None
     f: Callable = _zeros
     g: Callable = _zeros
     is_dirichlet: Callable = _everywhere
     name: str = "custom"
+    symmetric: bool = True
+
+    def symmetrized(self) -> "Problem":
+        """Elliptic part only, convection dropped: the reference's
+        ``make_elliptic`` flag for eigenproblem operators
+        (convection_diffusion_problems.hh:54-66)."""
+        return Problem(alpha=self.alpha, c=self.c, f=self.f, g=self.g,
+                       is_dirichlet=self.is_dirichlet,
+                       name=self.name + "_elliptic")
 
 
 def simple() -> Problem:
@@ -114,6 +126,60 @@ def islands() -> Problem:
         g=lambda x: 1.0 - x[..., 0],
         is_dirichlet=lambda x: (x[..., 0] < 1e-6) | (x[..., 0] > 1.0 - 1e-6),
         name="islands",
+    )
+
+
+def _constant_field(*values):
+    """(..., d) convection field with the given constant components."""
+    def b(xq):
+        return torch.stack([torch.full_like(xq[..., 0], v) for v in values],
+                           dim=-1)
+    return b
+
+
+def checkerboard_convection_diffusion(nx: int = 8, ny: int = 8) -> Problem:
+    """convection_diffusion_coefficient.lua: nx x ny checkerboard alpha in
+    {1e-6, 1}, convection b = (1/3, 1), Dirichlet at x=0 (g=1) and y=0
+    (g=0).  Nonsymmetric."""
+
+    def alpha(xq):
+        ix = torch.floor(xq[..., 0] * nx).to(torch.int32)
+        iy = torch.floor(xq[..., 1] * ny).to(torch.int32)
+        return _pick(ix % 2 == iy % 2, 1.0, 1e-6, xq[..., 0])
+
+    return Problem(
+        alpha=alpha,
+        b=_constant_field(1.0 / 3.0, 1.0),
+        g=lambda x: _pick(x[..., 0] < 1e-6, 1.0, 0.0, x[..., 0]),
+        is_dirichlet=lambda x: (x[..., 0] < 1e-6) | (x[..., 1] < 1e-6),
+        name="checkerboard_cd",
+        symmetric=False,
+    )
+
+
+def dg_heterogeneous() -> Problem:
+    """The reference's DG test problem (examples/convectiondiffusiondg.hh):
+    alpha = 0.01 with a 1e5 block in [0.3,0.4]^2, convection b = (1,1),
+    Gaussian source at (0.2, 0.2), Dirichlet g=0 everywhere except the
+    outflow sides x > 1-1e-6 and y > 1-1e-6."""
+
+    def alpha(xq):
+        x, y = xq[..., 0], xq[..., 1]
+        return _pick((x > 0.3) & (x < 0.4) & (y > 0.3) & (y < 0.4), 1e5,
+                     0.01, x)
+
+    def f(xq):
+        r2 = (xq[..., 0] - 0.2) ** 2 + (xq[..., 1] - 0.2) ** 2
+        return 100.0 * torch.exp(-r2 / 0.05**2)
+
+    return Problem(
+        alpha=alpha,
+        b=_constant_field(1.0, 1.0),
+        f=f,
+        is_dirichlet=lambda x: (x[..., 0] <= 1.0 - 1e-6)
+        & (x[..., 1] <= 1.0 - 1e-6),
+        name="dg_heterogeneous",
+        symmetric=False,
     )
 
 
@@ -198,4 +264,5 @@ PROBLEMS = {
     "simple": simple,
     "beams": beams,
     "islands": islands,
+    "checkerboard_cd": checkerboard_convection_diffusion,
 }

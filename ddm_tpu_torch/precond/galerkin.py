@@ -7,8 +7,10 @@ from the overlapping subdomain pairs only (``pairs`` method),
     E[(i,k),(j,l)] = v_ik^T A^(i) v_jl,
 
 exact for bases that vanish on subdomain boundaries (every POU-finalized
-space does), or as the true Galerkin product v_ik^T A v_jl with the global
-operator (``global`` method, always exact).  It is factored once; the
+space does), as the true Galerkin product v_ik^T A v_jl with the global
+operator (``global`` method, always exact), or by the reference's own
+formula over all subdomain pairs (``local`` method, the transpose of the
+pairs formula's product with A^(i)).  It is factored once; the
 apply restricts with V, solves the
 coarse system with ``refine`` steps of iterative refinement against the
 stored E, prolongs and scatter-adds in fixed order.  With
@@ -32,19 +34,15 @@ from ..solvers.direct import BatchedInverse, factor_batched, pack_inverse
 from .extract import extract_subdomain_dense, gather_subdomain, scatter_add_subdomain
 
 
-def galerkin_coarse_matrix(
-    ell: SparseELL, sub2glob: torch.Tensor, basis: CoarseBasis,
-    group: int | None = None,
-) -> torch.Tensor:
-    """True Galerkin E[(i,k),(j,l)] = v_ik^T A v_jl, (n_c, n_c) dense.
+def _basis_products(V: torch.Tensor, sub2glob: torch.Tensor, n: int,
+                    apply, group: int | None) -> torch.Tensor:
+    """(n_c, n_c) with entry [(i,k),(j,l)] = v_ik . (apply(v_jl) on S_i).
 
     Loops over groups of subdomains j: the group's bases are placed into a
-    global multi-RHS block, multiplied by A in one SpMV, gathered back to
-    all subdomains and dotted with every basis.  ``group`` defaults to what
-    keeps the gathered (n_sub, n_pad, group * nev) block near 256 MB."""
-    n = ell.n
-    n_sub, nev, n_pad = basis.V.shape
-    V = basis.V
+    global multi-RHS block U (n, g*nev), ``apply`` maps it to the
+    subdomain-local (n_sub, n_pad, g*nev) block, which is dotted with
+    every basis.  ``group`` defaults to what keeps that block near 256 MB."""
+    n_sub, nev, n_pad = V.shape
     if group is None:
         group = 2**25 // max(n_sub * n_pad * nev, 1)
     group = max(1, min(group, n_sub))
@@ -57,10 +55,34 @@ def galerkin_coarse_matrix(
         U = V.new_zeros((n + 1, g, nev))
         member = torch.arange(g, device=V.device)[:, None]
         U[sub2glob[g0:g0 + group], member] = Vg.permute(0, 2, 1)
-        W = ell.mv(U[:n].reshape(n, g * nev))
-        W_sub = gather_subdomain(W, sub2glob)  # (n_sub, n_pad, g*nev)
+        W_sub = apply(U[:n].reshape(n, g * nev))  # (n_sub, n_pad, g*nev)
         cols.append(torch.einsum("skp,spl->skl", V, W_sub))
     return torch.cat(cols, dim=2).reshape(n_sub * nev, n_sub * nev)
+
+
+def galerkin_coarse_matrix(
+    ell: SparseELL, sub2glob: torch.Tensor, basis: CoarseBasis,
+    group: int | None = None,
+) -> torch.Tensor:
+    """True Galerkin E[(i,k),(j,l)] = v_ik^T A v_jl, (n_c, n_c) dense: one
+    SpMV per group of subdomains, gathered back to all subdomains."""
+    return _basis_products(
+        basis.V, sub2glob, ell.n,
+        lambda U: gather_subdomain(ell.mv(U), sub2glob), group)
+
+
+def galerkin_coarse_matrix_local(
+    A_sub: torch.Tensor, sub2glob: torch.Tensor, basis: CoarseBasis,
+    n_glob: int, group: int | None = None,
+) -> torch.Tensor:
+    """Reference-formula coarse matrix E[(j,l),(i,k)] = v_ik^T A^(i) v_jl
+    with A^(i) the dense overlapping subdomain matrix
+    (galerkin_preconditioner.hh:279-328 semantics): the transpose of
+    :func:`galerkin_coarse_matrix` with A^(i) in place of A, which it
+    equals for bases that vanish on subdomain boundaries."""
+    return _basis_products(
+        basis.V, sub2glob, n_glob,
+        lambda U: A_sub @ gather_subdomain(U, sub2glob), group).T
 
 
 def _pairs_maps(topo: DDMTopology):
@@ -146,8 +168,8 @@ def build_galerkin(
     method: str = "pairs",
 ) -> GalerkinPreconditioner:
     """Coarse matrix + factorization.  ``method``: ``pairs`` (exact for
-    boundary-vanishing bases) or ``global`` (always exact); the JAX
-    package's ``local`` formula is not ported.  Config keys (subtree
+    boundary-vanishing bases), ``global`` (always exact) or ``local`` (the
+    reference's formula on the dense subdomain matrices).  Config keys (subtree
     ``coarse_solver``): ``type`` (mandatory; cholesky / cholmod / lu /
     umfpack / superlu; with ``ptree`` None, cholesky), ``refine``
     (iterative-refinement steps per coarse solve, default 2).
@@ -168,13 +190,14 @@ def build_galerkin(
     precision = sub.get("precision", "f64")
     if precision not in ("f64", "dd"):
         raise ValueError(f"coarse precision '{precision}' is not ported")
-    if method not in ("pairs", "global"):
-        raise NotImplementedError(
-            f"coarse-matrix method '{method}' is not ported")
+    if method not in ("pairs", "global", "local"):
+        raise ValueError(f"unknown coarse-matrix method '{method}'")
     device = ell.vals.device
     s2g = torch.as_tensor(topo.sub2glob.astype(np.int64), device=device)
     with scoped("GalerkinPrec", "build Matrix", device):
-        if method == "pairs":
+        if method == "global":
+            E = galerkin_coarse_matrix(ell, s2g, basis)
+        else:
             local_cols = torch.as_tensor(
                 extraction_map(topo, ell.cols.cpu().numpy()).astype(np.int64),
                 device=device,
@@ -182,10 +205,11 @@ def build_galerkin(
             valid = torch.as_tensor(topo.valid, device=device)
             A_sub = extract_subdomain_dense(ell, s2g, valid, local_cols)
             del local_cols
-            E = galerkin_coarse_matrix_pairs(A_sub, topo, basis)
+            if method == "pairs":
+                E = galerkin_coarse_matrix_pairs(A_sub, topo, basis)
+            else:
+                E = galerkin_coarse_matrix_local(A_sub, s2g, basis, ell.n)
             del A_sub
-        else:
-            E = galerkin_coarse_matrix(ell, s2g, basis)
         E = _mask_inactive(E, basis.active)
     with scoped("GalerkinPrec", "factor A0", device):
         coarse = factor_batched(E[None], sub.get("type"))

@@ -187,7 +187,10 @@ def factor_batched(
     def inverse(a):
         eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
         if st == "lu":
-            inv = torch.linalg.lu_solve(*_lu_factor(a), eye.expand_as(a))
+            # lu_solve returns column-major storage; the dd kernel reads
+            # row-major rows, and an LU inverse is not symmetric
+            inv = torch.linalg.lu_solve(*_lu_factor(a),
+                                        eye.expand_as(a)).contiguous()
         else:
             linv = torch.linalg.solve_triangular(
                 torch.linalg.cholesky(a), eye.expand_as(a), upper=False)

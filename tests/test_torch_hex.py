@@ -207,9 +207,10 @@ def test_hex_slice_dd_within_two_of_f64(runs, coarse, overlap):
     assert np.abs(u - u_f64).max() <= 1e-6 * np.abs(u_f64).max()
 
 
-def test_make_grid_dim_and_refine():
+def test_make_grid_dim_and_refine(tmp_path):
     """``make_grid(ptree, dim)`` with ``refine``: a 3-D grid of 4 cells per
-    axis refined once is the 8-cell grid; a mesh file still raises."""
+    axis refined once is the 8-cell grid; a ``meshfile`` is read instead
+    (tests/test_torch_unstructured.py), so a missing one raises."""
     pt = tapi.default_ptree()
     pt["gridsize"] = 4
     pt["refine"] = 1
@@ -218,8 +219,8 @@ def test_make_grid_dim_and_refine():
     assert g.elem_type == "hex" and g.shape == (8, 8, 8)
     np.testing.assert_allclose(g.nodes, ref.nodes, atol=1e-15)
     np.testing.assert_array_equal(g.elems, ref.elems)
-    pt["meshfile"] = "bar.msh"
-    with pytest.raises(NotImplementedError):
+    pt["meshfile"] = str(tmp_path / "bar.msh")
+    with pytest.raises(FileNotFoundError):
         tapi.make_grid(pt, dim=3)
 
 

@@ -257,3 +257,23 @@ def test_cuda_ring_slice_matches_cpu_f64(cuda_device):
     assert shapes == {(16, n_pad, n_pad): 3 * fine.applies,
                       (1, n_c, n_c): 3 * coarse.applies}
     assert fine.applies == coarse.applies > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_sub,P", [(4, 1296), (1, 864)])
+def test_cuda_kernel_reads_a_nonsymmetric_inverse_by_rows(cuda_device, n_sub, P):
+    """LU inverses (the DG paths' subdomain and coarse inverses) are not
+    symmetric: at the DG sizes, on a batch whose transpose gives a far
+    other product, the kernel matches (hi + lo) @ d to 1e-12 and the
+    transposed product not at all."""
+    rng = np.random.default_rng(P)
+    A = np.tril(rng.standard_normal((n_sub, P, P))) * 3.0 + np.eye(P)
+    d = rng.standard_normal((n_sub, P))
+    hi, lo = dd_split(torch.as_tensor(A, device=cuda_device))
+    dt = torch.as_tensor(d, device=cuda_device)
+    y = ddmatvec.dd_matvec_cuda(hi, lo, dt).cpu()
+    A32 = (hi.double() + lo.double()).cpu()
+    truth = (A32 @ dt.cpu()[..., None])[..., 0]
+    wrong = (A32.mT @ dt.cpu()[..., None])[..., 0]
+    assert _relerr(y, truth) < 1e-12
+    assert _relerr(wrong, truth) > 0.1

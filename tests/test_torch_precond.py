@@ -179,3 +179,143 @@ def test_cholqr2_matches_jax():
     np.testing.assert_allclose(np.einsum("spk,spl->skl", Q, Q),
                                np.broadcast_to(np.eye(6), (3, 6, 6)), atol=1e-13)
     assert _relerr(Q, j_cholqr2(jnp.asarray(W))) < 1e-10
+
+
+# -- the reference's 4-rank coarse-matrix fixture and the ``local`` formula --
+# (tests/test_galerkin.py: tests/test_galerkin_coarse_matrix.cc of the
+# reference, a 9x9 nonsymmetric matrix over 4 subdomains)
+
+EXPECTED_COARSE = np.array([
+    [29.52777777777778, 27.02777777777778, 7.277777777777778, 0.0],
+    [21.69444444444445, 28.11111111111111, 21.19444444444444, 8.166666666666666],
+    [4.611111111111111, 18.52777777777778, 34.11111111111111, 36.91666666666666],
+    [0.0, 5.499999999999999, 31.58333333333333, 50.75],
+])
+
+
+@pytest.fixture(scope="module")
+def fixture():
+    """The fixture's matrix, topology (overlap 1, the copied topology code)
+    and POU basis 1/#sharing, which does NOT vanish on subdomain
+    boundaries; the JAX package's global and local coarse matrices on it."""
+    import scipy.sparse as sps
+
+    from ddm_tpu.coarse.basis import CoarseBasis as JBasis
+    from ddm_tpu.core.sparse import EllPattern as JPattern
+    from ddm_tpu.precond.extract import extract_subdomain_dense as j_extract
+    from ddm_tpu.precond.galerkin import galerkin_coarse_matrix_local as j_local
+    from ddm_tpu_torch.core.indexmaps import build_topology, extraction_map
+    from ddm_tpu_torch.core.sparse import EllPattern
+
+    rows = list(range(9)) + list(range(8)) + list(range(1, 9))
+    cols = list(range(9)) + list(range(1, 9)) + list(range(8))
+    vals = np.array([i + 1.0 for i in range(9)] + [18.0 + i for i in range(8)]
+                    + [10.0 + i for i in range(8)])
+    adj = sps.csr_matrix((np.ones(len(rows)), (rows, cols)), shape=(9, 9))
+    M0 = sps.csr_matrix(
+        (np.ones(12, np.int8), ([0] * 3 + [1] * 3 + [2] * 3 + [3] * 3,
+                                [0, 1, 2, 2, 3, 4, 4, 5, 6, 6, 7, 8])),
+        shape=(4, 9))
+    owner = np.array([0, 0, 0, 1, 1, 2, 2, 3, 3], dtype=np.int32)
+    topo = build_topology(adj, M0, owner, 1)
+    count = np.zeros(10)
+    np.add.at(count, topo.sub2glob, topo.valid.astype(float))
+    w = np.where(topo.valid, 1.0 / np.maximum(count[topo.sub2glob], 1), 0.0)
+    ell = EllPattern.from_coo(rows, cols, 9).assemble(
+        torch.as_tensor(vals), EllPattern.from_coo(rows, cols, 9).assembly_plan("cpu"))
+    s2g = torch.as_tensor(topo.sub2glob.astype(np.int64))
+    lc = torch.as_tensor(extraction_map(topo, ell.cols.numpy()).astype(np.int64))
+    A_sub = extract_subdomain_dense(ell, s2g, torch.as_tensor(topo.valid), lc)
+    jell = JPattern.from_coo(np.array(rows), np.array(cols), 9).assemble(
+        jnp.asarray(vals))
+    jlc = extraction_map(topo, np.asarray(jell.colsT).T)
+    jA_sub = j_extract(jell, jnp.asarray(topo.sub2glob), jnp.asarray(topo.valid),
+                       jnp.asarray(jlc))
+    E_local_j = j_local(jA_sub, jnp.asarray(topo.sub2glob),
+                        JBasis(V=jnp.asarray(w)[:, None, :],
+                               active=jnp.ones((4, 1), bool)), topo.n_glob)
+    return dict(topo=topo, ell=ell, s2g=s2g, A_sub=A_sub,
+                basis=convert.basis_from_numpy(w[:, None, :], np.ones((4, 1), bool),
+                                               device="cpu"),
+                E_local_j=np.asarray(E_local_j))
+
+
+def test_fixture_global_coarse_matrix_is_expected(fixture):
+    """The true Galerkin product v_i^T A v_j of the fixture (nonsymmetric,
+    hand-checked in the reference) to 1e-12."""
+    from ddm_tpu_torch.precond.galerkin import galerkin_coarse_matrix
+
+    topo = fixture["topo"]
+    assert list(topo.sizes) == [4, 5, 5, 4]
+    E = galerkin_coarse_matrix(fixture["ell"], fixture["s2g"], fixture["basis"])
+    np.testing.assert_allclose(E.numpy(), EXPECTED_COARSE, atol=1e-12)
+
+
+@pytest.mark.parametrize("group", [None, 1, 3])
+def test_fixture_local_coarse_matrix_matches_jax(fixture, group):
+    """The reference formula v_ik^T A^(i) v_jl on the fixture's basis,
+    which is nonzero on subdomain boundaries (so it differs from the true
+    product), equals the JAX package's to 1e-12, in any subdomain grouping."""
+    from ddm_tpu_torch.precond.galerkin import galerkin_coarse_matrix_local
+
+    E = galerkin_coarse_matrix_local(fixture["A_sub"], fixture["s2g"],
+                                     fixture["basis"], 9, group=group)
+    np.testing.assert_allclose(E.numpy(), fixture["E_local_j"], atol=1e-12)
+    assert np.abs(E.numpy().T - EXPECTED_COARSE).max() > 1e-3
+
+
+def _local_ptree(api):
+    pt = api.default_ptree()
+    pt["gridsize"] = 16
+    pt["solver.reduction"] = 1e-8
+    pt["coarsespace.type"] = "geneo"
+    pt["geneo.eigensolver.nev"] = 4
+    pt["coarse_solver.type"] = "lu"
+    pt["coarse_solver.matrix_method"] = "local"
+    return pt
+
+
+def test_local_equals_global_transposed_and_two_level_matches_jax():
+    """On a POU-finalized GenEO basis (zero on subdomain boundaries) the
+    local formula is the global one transposed (1e-12 relative); a
+    two-level solve with ``coarse_solver.matrix_method = local`` takes the
+    JAX package's GMRES iterations (islands 16^2 / (2, 2))."""
+    from ddm_tpu.coarse.basis import finalize_basis as jfin
+    from ddm_tpu.precond.combined import build_combined as j_combined
+    from ddm_tpu_torch.coarse.geneo import geneo_coarse_space
+    from ddm_tpu_torch.core.indexmaps import extraction_map
+    from ddm_tpu_torch.precond.galerkin import (
+        galerkin_coarse_matrix,
+        galerkin_coarse_matrix_local,
+    )
+
+    pt = tapi.setup_problem(_local_ptree(tapi), problem=tproblems.islands(),
+                            parts=(2, 2), device="cpu")
+    basis = geneo_coarse_space(pt, pt.ptree)
+    s2g = torch.as_tensor(pt.topo.sub2glob.astype(np.int64))
+    lc = torch.as_tensor(extraction_map(pt.topo, pt.A.cols.numpy()).astype(np.int64))
+    A_sub = extract_subdomain_dense(pt.A, s2g, torch.as_tensor(pt.topo.valid), lc)
+    E_g = galerkin_coarse_matrix(pt.A, s2g, basis).numpy()
+    E_l = galerkin_coarse_matrix_local(A_sub, s2g, basis, pt.topo.n_glob).numpy()
+    assert np.abs(E_l.T - E_g).max() < 1e-12 * np.abs(E_g).max()
+    rt = tapi.solve(pt)
+
+    pj = japi.setup_problem(_local_ptree(japi), problem=jproblems.islands(),
+                            parts=(2, 2))
+    A_neu, B_neu = j_neumann(pj)
+    pou = jnp.asarray(pj.pou)
+    _, V, active = j_solve_gevp(
+        A_neu, j_pou_scale(B_neu, pou),
+        JParams.from_ptree(pj.ptree.sub("geneo.eigensolver")))
+    jbasis = jfin(V, pou, jnp.asarray(pj.topo.valid), active)
+    from ddm_tpu.core.indexmaps import extraction_map as j_extraction_map
+    from ddm_tpu.precond.extract import extract_subdomain_dense as j_extract
+
+    jA_sub = j_extract(pj.A, jnp.asarray(pj.topo.sub2glob),
+                       jnp.asarray(pj.topo.valid),
+                       jnp.asarray(j_extraction_map(pj.topo, np.asarray(pj.A.colsT).T)))
+    coarse = j_build_galerkin(pj.A, pj.topo, jbasis, pj.ptree, method="local",
+                              A_sub=jA_sub)
+    fine = j_build_schwarz(pj.A, pj.topo, pj.pou, pj.ptree)
+    rj = japi.solve(pj, j_combined([fine, coarse], pj.ptree))
+    assert rt.converged and rt.iterations == int(rj.iterations)

@@ -393,12 +393,15 @@ def test_setup_problem_defaults_to_the_card(monkeypatch):
 
 
 def test_unported_coarse_space_and_pencil_raise(state):
+    """An unported coarse space raises, and so does an unported (iterative)
+    eigensolver type, whether the pencil is definite or not."""
     p = state["p"]
     pt = _ptree(tapi)
     pt["coarsespace.type"] = "msgfem_ring"
     with pytest.raises(NotImplementedError):
         build_two_level(dataclasses.replace(p, ptree=pt))
+    pt["geneo_ring.eigensolver.type"] = "lobpcg"
     params = EigensolverParams.from_ptree(pt.sub("geneo_ring.eigensolver"))
     eye = torch.eye(4, dtype=torch.float64)[None]
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="not ported"):
         solve_gevp(eye, eye, params, spd=False)
