@@ -15,16 +15,31 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    3, 5, 6 and 7 blocks, and the coarse shape (1, 2048, 2048), each with
    the launch plan it took; then two launches at the coarse shape,
    which must give the same bits (the column split's cluster reduction runs
-   in a fixed order);
+   in a fixed order).  Row by row, the kernel must lie within the plain
+   version's worst-case rounding, gamma_(q+1) = (q+1) u / (1 - (q+1) u)
+   with u = 2^-24, of (|hi| + |lo|) |d|, and within 1e-12 (relative) of
+   the f64 product of hi + lo;
 4. small-input references, each on the card against the exact f64 slice
-   on the CPU (iterations within 2, solutions within 1e-6): the geneo dd
-   and the geneo_ring (R-dd) slices at islands 32^2 / 16 subdomains, the
-   3-D hex dd slice at islands 12^3 / 8 subdomains, overlap 2, the
+   on the CPU (iterations within 2, the same coarse vectors kept in every
+   subdomain, solutions within 1e-6): the
+   geneo dd and the geneo_ring (R-dd) slices at islands 32^2 / 16
+   subdomains, the 3-D hex dd slice at islands 12^3 / 8 subdomains,
+   overlap 2, the
    elasticity dd slice at steel-rubber 32^2 / 16 subdomains, the
    unstructured dd slice on the L-shape below refined once / 8 RCB
    subdomains, the DG dd slice at 16^2 / (2, 2), overlap 1, and tet
    elasticity (the steel-rubber bar on 8 x 2 x 3 Kuhn-tetrahedron cells,
-   4 RCB subdomains, three displacement components);
+   4 RCB subdomains, three displacement components); then, at islands
+   32^2 / 16, f64 on both sides unless named, the coarse spaces
+   ``algebraic_geneo``, ``constraint_geneo``, ``msgfem`` (dd on the card:
+   the kernel at the fine and the coarse shape), ``msgfem_euclid``,
+   ``algebraic_msgfem``, ``msgfem_ring``, ``harmonic_extension``, ``svd``
+   and ``geneo`` with ``eigensolver.type = lobpcg`` (card and CPU start
+   from the same numpy block); for these nine the iterations are compared
+   at the reduction 1e-8 and the solutions in a second run of both sides
+   that iterates to the residual floor (at 1e-8 GMRES leaves the weaker
+   spaces' solutions up to 2e-4 from a sparse direct solve, farther apart
+   than 1e-6);
 5. the main paths, nev 8, Cholesky coarse solve, restart 50 to 1e-8 with
    verified termination, through the user entry points ``setup_problem ->
    build_preconditioner -> solve -> solution``, each run cold then warm,
@@ -76,8 +91,35 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    * ``dg_f64`` and ``dg_dd`` (dd subdomain and coarse inverses: the kernel
      on nonsymmetric LU inverses at (144, 1280, 1280) and (1, 864, 864));
 
+   and five paths of other coarse spaces and of the iterative eigensolver:
+
+   * ``geneo_lobpcg`` (islands 384^2 / 256, geneo with
+     ``eigensolver.type = lobpcg``, f64 inverses), ``unstr_lobpcg`` (the
+     L-shape, 128 RCB subdomains) and ``hex_ov2_lobpcg`` (56^3 / 512,
+     overlap 2), each held to its dense path's count in this run + 2 (18
+     for geneo_lobpcg) and, if it misses that at the default LOBPCG
+     tolerance 1e-5, recorded and run again at 1e-8; each prints the
+     LOBPCG iterations and block widths of every slab;
+   * ``msgfem_dd`` (islands 384^2 / 256, msgfem nev 10, dd subdomain and
+     coarse inverses: the kernel at (256, 848, 848) and (1, n_c, n_c)) and
+     ``msgfem_ring_f64`` (msgfem_ring nev 10, f64 inverse), held to the JAX
+     package's test limits 45 and 60;
+
+   then one A/B line per pencil shape, (256, 848), (128, 1968) and
+   (512, 1728): the warm dense GEVP seconds of geneo_dd, unstr_f64 and
+   hex_ov2_f64 against the warm LOBPCG seconds of the LOBPCG path of the
+   same pencils, with the GEVP phase's peak GiB; the two must keep the same
+   coarse vectors in every subdomain, and their kept eigenvalues must
+   agree to 1e-3 of each subdomain's largest kept one (the bound of the
+   JAX package's LOBPCG-against-dense test on a GenEO pencil,
+   tests/test_lobpcg.py:203); and ``torch.linalg.eigh``
+   of LOBPCG's Rayleigh-Ritz shapes (n_sub, 24, 24) and (n_sub, 48, 48),
+   timed against one batched product with the pencil, with the device
+   kernels it ran;
+
 6. after each dd path's warm run, the kernel against its plain version at
-   that path's shapes, on the path's own inverses, with CUDA-event
+   that path's shapes (msgfem_dd: its coarse shape), on the path's own
+   inverses, with CUDA-event
    timings (and, for the ring paths, the f64 and dd fine-level apply
    times), each with its launch plan, its share of the bound
    and, as a reference line over the same bytes, the f64 cuBLAS matvec of
@@ -127,14 +169,33 @@ import torch
 # shared CPU host): their f64 paths are held to the stated bounds below,
 # and each dd path to its f64 path's count of this run + 2 (set when that
 # path has run).
+# msgfem_dd and msgfem_ring_f64 are held to the limits of the JAX package's
+# coarse-space test at 48^2/16 (tests/test_coarse_spaces.py:40,42), the
+# LOBPCG paths to the count of the dense path on the same pencils + 2.
 MAX_ITERS = {"geneo_dd": 16 + 2, "ring_f64": 15 + 2, "ring_dd": 15 + 2,
              "hex_ov1_dd": 19 + 2, "elast_f64": 100, "elast_dd": 100,
-             "unstr_f64": 30, "dg_f64": 50}
+             "unstr_f64": 30, "dg_f64": 50, "geneo_lobpcg": 16 + 2,
+             "msgfem_dd": 45, "msgfem_ring_f64": 60}
+LOBPCG_RETRY_TOL = 1e-8  # tests/test_lobpcg.py:169
 ESTIMATE_HIT_MAX = 46 + 3
 TRUE_RES_MAX = {"islands": 1e-7, "hex": 1e-7, "elast": 2e-8, "unstr": 1e-7,
                 "dg": 1e-7, "tet": 2e-8}
-KERNEL_VS_PLAIN_TOL = 1e-6  # plain version sums f32 partial products
+SOLUTION_TOL = 1e-6  # small-input card solution against the CPU's
+# The phase-4 coarse-space checks (TIGHT_CHECKS) compare solutions in a
+# second run of both sides at TIGHT_REDUCTION: at 1e-8 GMRES leaves the
+# weaker spaces' solutions up to 2e-4 from a sparse direct solve (CPU,
+# 32^2/16), so two correct runs may differ by more than SOLUTION_TOL, and
+# at 1e-10 still up to 5e-6.  No run meets 1e-12 (the verified residual
+# floors near 1e-11): both sides run to maxit (400) and must end at a true
+# residual within FLOOR_RES_MAX, where every solution lies within 3e-8 of
+# a direct solve (CPU).  Near the floor the iteration counts of two correct
+# runs drift apart (by up to 10 at 1e-10 on the CPU under another thread
+# count), so the counts are compared at 1e-8.
+TIGHT_REDUCTION = 1e-12
+FLOOR_RES_MAX = 1e-10
 KERNEL_VS_F64_TOL = 1e-12  # kernel accumulates in f64
+U32 = 2.0 ** -24  # f32 unit roundoff
+EIG_GAP_MAX = 1e-3  # LOBPCG against dense, tests/test_lobpcg.py:203
 
 # One NVIDIA H100 SXM at its 700 W limit (NVIDIA's data sheet): HBM3 rate
 # and the FP64 rate outside the tensor cores, which the kernel's FMAs use.
@@ -143,6 +204,7 @@ FP64_FLOP_PER_S = 34e12
 
 DD = {"schwarz.subdomain_solver.precision": "dd",
       "coarse_solver.precision": "dd"}
+LOBPCG = {"geneo.eigensolver.type": "lobpcg"}
 # path -> (problem kind, coarse space, overlap, extra config keys)
 PATHS = {
     "geneo_f64": ("islands", "geneo", 2, {}),  # the CPU reference of geneo_dd
@@ -163,7 +225,46 @@ PATHS = {
     "dg_dd": ("dg", "geneo", 1, DD),
     "tet_f64": ("tet", "geneo", 2, {}),
     "tet_dd": ("tet", "geneo", 2, DD),
+    "geneo_lobpcg": ("islands", "geneo", 2, dict(LOBPCG)),
+    "unstr_lobpcg": ("unstr", "geneo", 2, dict(LOBPCG)),
+    "hex_ov2_lobpcg": ("hex", "geneo", 2, dict(LOBPCG)),
+    "msgfem_f64": ("islands", "msgfem", 2, {"msgfem.eigensolver.nev": 10}),
+    "msgfem_dd": ("islands", "msgfem", 2,
+                  {**DD, "msgfem.eigensolver.nev": 10}),
+    "msgfem_ring_f64": ("islands", "msgfem_ring", 2,
+                        {"msgfem_ring.eigensolver.nev": 10}),
+    # the small coarse-space checks (nev as in tests/test_coarse_spaces.py)
+    "algebraic_geneo": ("islands", "algebraic_geneo", 2, {}),
+    "constraint_geneo": ("islands", "constraint_geneo", 2, {}),
+    "msgfem_euclid": ("islands", "msgfem_euclid", 2,
+                      {"msgfem_euclid.eigensolver.nev": 10}),
+    "algebraic_msgfem": ("islands", "algebraic_msgfem", 2,
+                         {"algebraic_msgfem.eigensolver.nev": 10}),
+    "harmonic_extension": ("islands", "harmonic_extension", 2, {}),
+    "svd": ("islands", "svd", 2, {}),
 }
+# phase 4: (path on the card, its reference on the CPU)
+SMALL_CHECKS = [("geneo_dd", "geneo_f64"), ("ring_dd", "ring_f64"),
+                ("hex_ov2_dd", "hex_ov2_f64"), ("elast_dd", "elast_f64"),
+                ("unstr_dd", "unstr_f64"), ("dg_dd", "dg_f64"),
+                ("tet_dd", "tet_f64"), ("algebraic_geneo", "algebraic_geneo"),
+                ("constraint_geneo", "constraint_geneo"),
+                ("msgfem_dd", "msgfem_f64"), ("msgfem_euclid", "msgfem_euclid"),
+                ("algebraic_msgfem", "algebraic_msgfem"),
+                ("msgfem_ring_f64", "msgfem_ring_f64"),
+                ("harmonic_extension", "harmonic_extension"), ("svd", "svd"),
+                ("geneo_lobpcg", "geneo_lobpcg")]
+TIGHT_CHECKS = {"algebraic_geneo", "constraint_geneo", "msgfem_dd",
+                "msgfem_euclid", "algebraic_msgfem", "msgfem_ring_f64",
+                "harmonic_extension", "svd", "geneo_lobpcg"}
+# phase 5, in order: a LOBPCG path after the dense path of its pencils
+MAIN_PATHS = ("geneo_dd", "geneo_lobpcg", "ring_f64", "ring_dd", "msgfem_dd",
+              "msgfem_ring_f64", "hex_ov1_dd", "hex_ov2_f64", "hex_ov2_lobpcg",
+              "hex_ov2_dd", "elast_f64", "elast_dd", "unstr_f64",
+              "unstr_lobpcg", "unstr_dd", "dg_f64", "dg_dd")
+# (dense path, LOBPCG path) on the same pencils, for the A/B lines
+GEVP_AB = [("geneo_dd", "geneo_lobpcg"), ("unstr_f64", "unstr_lobpcg"),
+           ("hex_ov2_f64", "hex_ov2_lobpcg")]
 # problem kind -> (size, decomposition) at full and at small size: cells per
 # axis and parts, except for the L-shape (refinements of its mesh file and
 # the number of RCB subdomains) and the tet bar (fixed cells, RCB)
@@ -177,6 +278,28 @@ LSHAPE_CELLS = 22  # coarse L-shape: 22 x 22 cells, the 11 x 11 quadrant removed
 
 def fail(msg):
     raise RuntimeError(msg)
+
+
+# (eigenvalues, kept mask) of each GenEO GEVP of the current run, on the
+# device, appended by the wrapper that record_gevp installs
+GEVP_OUT = []
+
+
+def record_gevp():
+    """Wrap the GenEO coarse space's call of the eigensolver dispatch so that
+    every run keeps its eigenvalues and kept masks (on the device: no added
+    synchronization) for the dense-against-LOBPCG comparison; the solve
+    itself is unchanged."""
+    from ddm_tpu_torch.coarse import geneo
+
+    solve = geneo.solve_gevp
+
+    def recorded(*args, **kwargs):
+        lam, V, active = solve(*args, **kwargs)
+        GEVP_OUT.append((lam.clone(), active.clone()))
+        return lam, V, active
+
+    geneo.solve_gevp = recorded
 
 
 def rel_err(y, ref):
@@ -221,7 +344,7 @@ def lshape_file():
     return os.path.join(_MESH_DIR[0].name, "lshape.msh")
 
 
-def path_ptree(api, path, size):
+def path_ptree(api, path, size, reduction=1e-8):
     kind, coarse, overlap, keys = PATHS[path]
     if kind == "dg":
         from ddm_tpu_torch.examples.convectiondiffusiondg import dg_ptree
@@ -247,7 +370,7 @@ def path_ptree(api, path, size):
         # only: these preconditioners distort norms by the coefficient
         # contrast (the DG paths' true residual stays at 1e-4 there)
         pt["solver.type"] = "restartedflexiblegmressolver"
-    pt["solver.reduction"] = 1e-8
+    pt["solver.reduction"] = reduction
     pt["solver.restart"] = 50
     pt["solver.maxit"] = 400
     pt["solver.verify"] = True
@@ -257,7 +380,7 @@ def path_ptree(api, path, size):
     return pt
 
 
-def path_problem(api, path, size, parts, device):
+def path_problem(api, path, size, parts, device, reduction=1e-8):
     """The problem of one path through its entry point: ``setup_problem``
     for the islands problem on the unit square or cube or on the L-shape
     mesh file (``parts`` an int: that many RCB subdomains), the
@@ -267,7 +390,7 @@ def path_problem(api, path, size, parts, device):
     from ddm_tpu_torch.fem.grids import structured_grid
 
     kind = PATHS[path][0]
-    pt = path_ptree(api, path, size)
+    pt = path_ptree(api, path, size, reduction)
     if kind == "dg":
         from ddm_tpu_torch.examples.convectiondiffusiondg import setup
 
@@ -299,12 +422,13 @@ def size_label(path, size, parts):
     return f"{size}^{len(parts)}/{math.prod(parts)}"
 
 
-def run_path(path, size, parts, device):
+def run_path(path, size, parts, device, reduction=1e-8):
     """Drive one path once through the entry points, with the kernel's
     launch counts and the ring's route counts zeroed just before and read
     just after.  Returns a dict of the run's objects and counts."""
     from ddm_tpu_torch import api
     from ddm_tpu_torch.coarse import ring
+    from ddm_tpu_torch.eigen import lobpcg
     from ddm_tpu_torch.kernels import ddmatvec
     from ddm_tpu_torch.obs.logger import Logger
 
@@ -317,8 +441,10 @@ def run_path(path, size, parts, device):
     ddmatvec.dd_matvec_cuda.shapes.clear()
     for k in ring.ROUTES:
         ring.ROUTES[k] = 0
+    lobpcg.RUNS.clear()
+    GEVP_OUT.clear()
     t0 = time.perf_counter()
-    p = path_problem(api, path, size, parts, device)
+    p = path_problem(api, path, size, parts, device, reduction)
     M = api.build_preconditioner(p)
     res = api.solve(p, M)
     u = api.solution(p, res)
@@ -332,7 +458,8 @@ def run_path(path, size, parts, device):
         p=p, M=M, res=res, u=u, secs=secs,
         launches=sum(shapes.values()), shapes=shapes,
         fine_applies=M.precs[0].applies, coarse_applies=M.precs[1].applies,
-        routes=dict(ring.ROUTES),
+        routes=dict(ring.ROUTES), lobpcg=[dict(run) for run in lobpcg.RUNS],
+        eig=[(lam.cpu(), act.cpu()) for lam, act in GEVP_OUT],
         events={k: v.total for k, v in log.events.items()},
         peaks={k: v.peak_bytes / 2**30 for k, v in log.events.items()},
         peak_gib=peak / 2**30,
@@ -345,7 +472,10 @@ def run_path(path, size, parts, device):
 PHASES = [(("Schwarz", "extract"), "extract"),
           (("Schwarz", "factorise"), "factorise"),
           (("Eigensolver", "assemble Neumann"), "neumann"),
+          (("Eigensolver", "harmonic basis"), "harmonic_basis"),
+          (("Eigensolver", "reduced pencil"), "reduced_pencil"),
           (("Eigensolver", "solve GEVP"), "gevp"),
+          (("Eigensolver", "constraint solve"), "constraint"),
           (("Eigensolver", "extension"), "extension"),
           (("GalerkinPrec", "build Matrix"), "coarse_matrix"),
           (("GalerkinPrec", "factor A0"), "coarse_factor"),
@@ -399,10 +529,32 @@ def bound_ms(n_sub, q):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def f64_product(hi, lo, d):
+def f64_product(hi, lo, d, absolute=False):
+    """(hi + lo) @ d in f64, or with ``absolute`` (|hi| + |lo|) |d|, over
+    slabs of 64 matrices (1.5 GB of f64 at 1728^2 each)."""
     q = d.shape[1]
-    return ((hi[:, :q, :q].double() + lo[:, :q, :q].double())
-            @ d[..., None])[..., 0]
+    out = []
+    for i in range(0, d.shape[0], 64):
+        h, l = hi[i:i + 64, :q, :q], lo[i:i + 64, :q, :q]
+        x = d[i:i + 64]
+        if absolute:
+            h, l, x = h.abs(), l.abs(), x.abs()
+        m = h.double()
+        m += l
+        out.append((m @ x[..., None])[..., 0])
+        del m
+    return torch.cat(out)
+
+
+def plain_rounding(q):
+    """Worst-case |plain - exact| / ((|hi| + |lo|) |d|) of one row: the
+    plain version's f32 sums of q products err by at most
+    gamma_q = q u / (1 - q u) of the sum of their magnitudes, in any order
+    of summation (u = 2^-24); its f32 add of the two lo-order sums, the lo
+    dl term it drops, d's split and the f64 kernel's own error stay within
+    one more u, hence gamma_(q+1)."""
+    n = q + 1
+    return n * U32 / (1 - n * U32)
 
 
 def plan_str(pl):
@@ -412,19 +564,39 @@ def plan_str(pl):
 
 
 def check_kernel(ddmatvec, hi, lo, d, label):
-    """Kernel against its plain version and the f64 product of the same
+    """Kernel against its plain version, row by row within the plain
+    version's rounding bound, and against the f64 product of the same
     hi/lo; returns the largest absolute difference from the plain version
     and the launch plan the kernel took."""
     y = ddmatvec.dd_matvec_cuda(hi, lo, d)
     ref = ddmatvec.dd_matvec_reference(hi, lo, d)
     n_sub, q = d.shape
     pl = ddmatvec.plan(n_sub, q, ddmatvec.sm_count(d.device))
-    e_plain, e_f64 = rel_err(y, ref), rel_err(y, f64_product(hi, lo, d))
-    print(f"kernel {label} {tuple(hi.shape)} q={q} [{plan_str(pl)}]: rel err "
-          f"vs plain {e_plain:.3e}, vs f64 {e_f64:.3e}", flush=True)
-    if not (e_plain <= KERNEL_VS_PLAIN_TOL and e_f64 <= KERNEL_VS_F64_TOL):
+    scale = f64_product(hi, lo, d, absolute=True)
+    # a row of zero magnitudes gives 0 from both versions
+    e_plain = float(((y - ref).abs()
+                     / scale.clamp(min=torch.finfo(scale.dtype).tiny)).max())
+    bound = plain_rounding(q)
+    e_f64 = rel_err(y, f64_product(hi, lo, d))
+    print(f"kernel {label} {tuple(hi.shape)} q={q} [{plan_str(pl)}]: err vs "
+          f"plain {e_plain:.3e} of (|hi|+|lo|)|d| (rounding bound "
+          f"{bound:.3e}), rel err vs f64 {e_f64:.3e}", flush=True)
+    if not (e_plain <= bound and e_f64 <= KERNEL_VS_F64_TOL):
         fail(f"dd_matvec kernel disagrees with its plain version ({label})")
     return float((y - ref).abs().max()), pl
+
+
+def is_lobpcg(path):
+    return any(k.endswith("eigensolver.type") and v == "lobpcg"
+               for k, v in PATHS[path][3].items())
+
+
+def misses_only_iterations(path, r):
+    """A LOBPCG path that converged to its residual but over its iteration
+    limit (the case that is rerun at LOBPCG_RETRY_TOL)."""
+    return (is_lobpcg(path) and r["res"].converged
+            and r["true_res"] <= TRUE_RES_MAX[PATHS[path][0]]
+            and r["res"].iterations > MAX_ITERS[path])
 
 
 def check_path(path, run, r):
@@ -449,6 +621,15 @@ def check_path(path, run, r):
           f"launches {r['launches']} by shape {r['shapes']}, applies "
           f"{r['fine_applies']} fine + {r['coarse_applies']} coarse, "
           f"extension routes {r['routes']}", flush=True)
+    if r["lobpcg"]:
+        print(f"{path} ({run}): LOBPCG over {len(r['lobpcg'])} slab(s): "
+              + "; ".join(f"slab {i}: widths {x['widths']}, iterations "
+                          f"{x['iterations']}, escalations "
+                          f"{len(x['widths']) - 1}"
+                          for i, x in enumerate(r["lobpcg"])), flush=True)
+    if bool(r["lobpcg"]) != is_lobpcg(path):
+        fail(f"{path} ran LOBPCG {len(r['lobpcg'])} times, expected "
+             f"{'some' if is_lobpcg(path) else 'none'}")
     if not (res.converged and r["true_res"] <= TRUE_RES_MAX[kind]
             and res.iterations <= MAX_ITERS[path]):
         fail(f"{path} did not converge as required")
@@ -472,15 +653,16 @@ def check_path(path, run, r):
         fail("ring_dd did not take the direct extension route")
 
 
-def time_kernel(ddmatvec, path, r, flush_buf, gen):
+def time_kernel(ddmatvec, path, r, flush_buf, gen, levels=("fine", "coarse")):
     """The kernel against its plain version and the f64 product at the
-    shapes of a dd path, on that path's own inverses, with CUDA-event
-    times; returns one entry per shape for the kernels line."""
+    shapes of a dd path (of its ``levels``), on that path's own inverses,
+    with CUDA-event times; returns one entry per shape for the kernels
+    line."""
     fine, coarse = r["M"].precs
     dev = r["p"].device
     entries = []
     for label, fac in (("fine", fine.factors), ("coarse", coarse.coarse)):
-        if not hasattr(fac, "inv_hi"):
+        if label not in levels or not hasattr(fac, "inv_hi"):
             continue
         hi, lo = fac.inv_hi, fac.inv_lo
         n_sub, P, _ = hi.shape
@@ -576,6 +758,36 @@ def profile_paths(paths):
         print(f"  iterations {res.iterations}, converged {res.converged}",
               flush=True)
         del p, M, res
+
+
+def eigh_probe(dev, gen):
+    """``torch.linalg.eigh`` of LOBPCG's Rayleigh-Ritz batches (the Gram
+    and the projected pencil, (n_sub, 3m, 3m) at m = 8 and, after one nev
+    doubling, 16) at the main paths' slab sizes, against one batched product
+    of a pencil with the trial block, with the device kernels eigh ran."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for n_sub, p, k in ((256, 848, 24), (256, 848, 48), (51, 1968, 24),
+                        (67, 1728, 24)):
+        G = torch.randn((n_sub, k, k), generator=gen, device=dev,
+                        dtype=torch.float64)
+        G = G @ G.mT + k * torch.eye(k, device=dev, dtype=torch.float64)
+        ms_eigh = time_ms(lambda: torch.linalg.eigh(G))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.linalg.eigh(G)
+            torch.cuda.synchronize()
+        _, by_name = device_busy(prof)
+        kernels = sorted(by_name, key=lambda n: -by_name[n])[:3]
+        A = torch.randn((n_sub, p, p), generator=gen, device=dev,
+                        dtype=torch.float64)
+        S = torch.randn((n_sub, p, k), generator=gen, device=dev,
+                        dtype=torch.float64)
+        ms_mm = time_ms(lambda: A @ S, reps=5)
+        print(f"eigh ({n_sub}, {k}, {k}): {ms_eigh:.4f} ms, kernels "
+              f"{[n[:60] for n in kernels]}; one product ({n_sub}, {p}, {p}) "
+              f"@ ({n_sub}, {p}, {k}): {ms_mm:.4f} ms (bytes bound "
+              f"{8 * n_sub * p * p / HBM_BYTES_PER_S * 1e3:.4f} ms)", flush=True)
+        del A, S, G
 
 
 # (rows, chunks) per shape for --plans; each list's plan() is timed first
@@ -682,47 +894,89 @@ def main():
 
     # -- 4. small-input references: card vs CPU exact f64 -------------------
     cpu = torch.device("cpu")
-    for path, ref in (("geneo_dd", "geneo_f64"), ("ring_dd", "ring_f64"),
-                      ("hex_ov2_dd", "hex_ov2_f64"), ("elast_dd", "elast_f64"),
-                      ("unstr_dd", "unstr_f64"), ("dg_dd", "dg_f64"),
-                      ("tet_dd", "tet_f64")):
+    record_gevp()
+    for path, ref in SMALL_CHECKS:
         size, parts = SMALL[PATHS[path][0]]
         g = run_path(path, size, parts, dev)
         c = run_path(ref, size, parts, cpu)
+        tight = "reduction 1e-08"
         e_small = rel_err(g["u"].cpu(), c["u"])
-        n_dd = 3 * g["fine_applies"]
-        if "coarse_solver.precision" in PATHS[path][3]:
+        if path in TIGHT_CHECKS:
+            gt = run_path(path, size, parts, dev, TIGHT_REDUCTION)
+            ct = run_path(ref, size, parts, cpu, TIGHT_REDUCTION)
+            tight = (f"at reduction {TIGHT_REDUCTION:g}: card "
+                     f"{gt['res'].iterations} its (true rel residual "
+                     f"{gt['true_res']:.3e}), cpu {ct['res'].iterations} "
+                     f"its ({ct['true_res']:.3e})")
+            e_small = rel_err(gt["u"].cpu(), ct["u"])
+            if not max(gt["true_res"], ct["true_res"]) <= FLOOR_RES_MAX:
+                fail(f"small-input {path} did not reach the residual floor "
+                     f"(true rel residual <= {FLOOR_RES_MAX:g})")
+            del gt, ct
+        kept_g = g["M"].precs[1].active.cpu()
+        kept_c = c["M"].precs[1].active
+        keys = PATHS[path][3]
+        n_dd = 0
+        if "schwarz.subdomain_solver.precision" in keys:
+            n_dd += 3 * g["fine_applies"]
+        if "coarse_solver.precision" in keys:
             n_dd += 3 * g["coarse_applies"]
         print(f"small {size_label(path, size, parts)} {path} (n_pad "
               f"{g['p'].topo.n_pad}): card "
               f"{g['res'].iterations} its (true rel residual "
               f"{g['true_res']:.3e}), cpu {ref} {c['res'].iterations} its, "
-              f"solution rel diff {e_small:.3e}, launches {g['launches']} = "
+              f"kept {int(kept_g.sum())} / {int(kept_c.sum())} coarse "
+              f"vectors (same in every subdomain: "
+              f"{torch.equal(kept_g, kept_c)}), "
+              f"solution rel diff {e_small:.3e} ({tight}), launches "
+              f"{g['launches']} = "
               f"3 x ({g['fine_applies']} fine + {g['coarse_applies']} coarse) "
               f"applies, by shape {g['shapes']}", flush=True)
+        if g["lobpcg"]:
+            print(f"  LOBPCG iterations by slab: card "
+                  f"{[x['iterations'] for x in g['lobpcg']]}, cpu "
+                  f"{[x['iterations'] for x in c['lobpcg']]}", flush=True)
         if not (g["res"].converged
                 and abs(g["res"].iterations - c["res"].iterations) <= 2
-                and e_small <= 1e-6 and g["launches"] == n_dd > 0):
+                and torch.equal(kept_g, kept_c)
+                and e_small <= SOLUTION_TOL and g["launches"] == n_dd
+                and bool(g["lobpcg"]) == is_lobpcg(path)):
             fail(f"small-input {path} on the card disagrees with the CPU")
         del g, c
 
     # -- 5. main paths at full size, cold then warm; 6. their kernel shapes --
     flush_buf = torch.empty(2 * 50 * 2**20, dtype=torch.uint8, device=dev)
-    launches, entries = {}, []
-    for path in ("geneo_dd", "ring_f64", "ring_dd", "hex_ov1_dd",
-                 "hex_ov2_f64", "hex_ov2_dd", "elast_f64", "elast_dd",
-                 "unstr_f64", "unstr_dd", "dg_f64", "dg_dd"):
+    launches, entries, gevp = {}, [], {}
+    for path in MAIN_PATHS:
         size, parts = FULL[PATHS[path][0]]
         for run in ("cold", "warm"):
             r = None  # free the last run before this one's peak is taken
             r = run_path(path, size, parts, dev)
+            if run == "cold" and misses_only_iterations(path, r):
+                print(f"{path} (cold): {r['res'].iterations} iterations at "
+                      f"the default LOBPCG tolerance, over the limit "
+                      f"{MAX_ITERS[path]}; running it at tolerance "
+                      f"{LOBPCG_RETRY_TOL:g} instead", flush=True)
+                PATHS[path][3]["geneo.eigensolver.tolerance"] = LOBPCG_RETRY_TOL
+                r = None
+                r = run_path(path, size, parts, dev)
             check_path(path, run, r)
         launches[path] = r["launches"]
+        gevp[path] = dict(
+            secs=r["events"][("Eigensolver", "solve GEVP")],
+            peak=r["peaks"][("Eigensolver", "solve GEVP")],
+            shape=(r["p"].topo.n_sub, r["p"].topo.n_pad),
+            iterations=r["res"].iterations, lobpcg=r["lobpcg"],
+            eig=r["eig"][0] if r["eig"] else None)
         if path == "hex_ov1_dd":
             for ov2 in ("hex_ov2_f64", "hex_ov2_dd"):
                 MAX_ITERS[ov2] = r["res"].iterations + 2
+        if path == "hex_ov2_f64":
+            MAX_ITERS["hex_ov2_lobpcg"] = r["res"].iterations + 2
         if path in ("unstr_f64", "dg_f64"):
             MAX_ITERS[path.replace("f64", "dd")] = r["res"].iterations + 2
+        if path == "unstr_f64":
+            MAX_ITERS["unstr_lobpcg"] = r["res"].iterations + 2
         if path in ("ring_f64", "ring_dd"):
             # the fine apply of both ring paths: the f64 inverse is read once
             # per apply (1.47 GB), hi + lo three times (3 x 1.47 GB)
@@ -741,9 +995,37 @@ def main():
                 line += " (3 kernel launches + 2 exact sparse defects)"
             print(line, flush=True)
             del fine, d
-        if path != "geneo_dd":  # its one shape is ring_dd's fine shape
+        if path == "msgfem_dd":  # its fine shape is ring_dd's
+            entries += time_kernel(ddmatvec, path, r, flush_buf, gen,
+                                   levels=("coarse",))
+        elif path != "geneo_dd":  # its one shape is ring_dd's fine shape
             entries += time_kernel(ddmatvec, path, r, flush_buf, gen)
     r = None
+
+    # the dense GEVP against LOBPCG on the same pencils (warm runs)
+    for dense, lob in GEVP_AB:
+        d, g = gevp[dense], gevp[lob]
+        (lam_d, kept_d), (lam_l, kept_l) = d["eig"], g["eig"]
+        same = torch.equal(kept_d, kept_l)
+        # kept eigenvalues against each subdomain's largest kept one (the
+        # near-zero ones of floating subdomains have no relative accuracy)
+        top = torch.where(kept_d, lam_d.abs(), 0.0).amax(1, keepdim=True)
+        both = kept_d & kept_l
+        gap = float(((lam_l - lam_d).abs() / top)[both].max())
+        print(f"GEVP A/B {d['shape']}: dense {d['secs']:.3f} s ({dense}, "
+              f"{d['iterations']} its, GEVP peak {d['peak']:.2f} GiB), LOBPCG "
+              f"{g['secs']:.3f} s ({lob}, {g['iterations']} its, GEVP peak "
+              f"{g['peak']:.2f} GiB), LOBPCG / dense {g['secs'] / d['secs']:.3f}"
+              f"; LOBPCG iterations by slab "
+              f"{[x['iterations'] for x in g['lobpcg']]}, widths "
+              f"{[x['widths'] for x in g['lobpcg']]}; kept {int(kept_d.sum())}"
+              f" / {int(kept_l.sum())} (same in every subdomain: {same}), "
+              f"largest kept-eigenvalue gap {gap:.3e} of the subdomain's "
+              f"largest (limit {EIG_GAP_MAX:g})", flush=True)
+        if not (same and gap <= EIG_GAP_MAX):
+            fail(f"{lob}'s LOBPCG eigenpairs disagree with {dense}'s dense "
+                 f"ones on the same pencils")
+    eigh_probe(dev, gen)
 
     # top-level numbers: the ring_dd path at its fine shape (the first
     # entry); every path's shapes stand in "shapes", each path's total over

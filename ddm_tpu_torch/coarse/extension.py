@@ -16,8 +16,10 @@ Two routes, as in the JAX package:
   f64 subdomain inverse (no second factorization), returning per-vector
   residuals so the caller can verify and escalate.
 
-Not ported: the Minv-reuse Schur identity ``inverse_harmonic_extension`` and
-the harmonic parameter bases of msgfem_ring.
+Also the Schur-identity extension through the inverse
+(:func:`inverse_harmonic_extension`, which no coarse space calls: its error
+grows as eps * cond(A)^2) and the harmonic parameter bases of the msgfem
+spaces (:func:`harmonic_parameter_basis` and its column-compacted form).
 """
 
 from __future__ import annotations
@@ -272,3 +274,95 @@ def extension_inverse_of(fine, p, ptree) -> torch.Tensor | None:
     if factors.inv.dtype != torch.float64:
         return None
     return factors.inv
+
+
+def inverse_harmonic_extension(
+    Minv: torch.Tensor,
+    free_mask: torch.Tensor,
+    U_bnd: torch.Tensor,
+    c_mask: np.ndarray,
+) -> torch.Tensor:
+    """Energy-minimal extension through the subdomain inverse (Schur
+    identity), without a second factorization of A.
+
+    For SPD A with M = A^{-1} and the dofs split into f (free) and c
+    (complement): -A_ff^{-1} A_fc = M_fc M_cc^{-1}, so the extension is
+    u = M z with M_cc z_c = u_c and z zero off c; only the small complement
+    block M_cc is factored.  Minv (n_sub, p, p) the f64 inverse; free_mask
+    (n_sub, p); U_bnd (n_sub, nev, p) with data read outside free_mask;
+    c_mask host bool (n_sub, p), the complement (valid & ~free).  The
+    contract of :func:`energy_minimal_extension`."""
+    f = free_mask.to(torch.bool)
+    Ub = torch.where(f[:, None, :], 0.0, U_bnd)
+    c_idx, cval, _, _ = compact_maps(c_mask)
+    c_idx = torch.as_tensor(c_idx, device=Minv.device).long()
+    cval = torch.as_tensor(cval, device=Minv.device)
+    keep = cval[:, :, None] & cval[:, None, :]
+    Mcc = torch.where(keep, compact_mat(Minv, c_idx), 0.0)
+    Mcc = Mcc + torch.diag_embed((~cval).to(Mcc.dtype))
+    Uc = torch.gather(Ub, 2, c_idx[:, None, :].expand(-1, Ub.shape[1], -1))
+    Uc = torch.where(cval[:, None, :], Uc, 0.0)
+    Zc = factor_batched(Mcc, "cholesky", mode="factors").solve(Uc.mT)
+    # back to full size (zero off c; the padding slots land in row p,
+    # which is cut off), then one wide product with the inverse
+    n_sub, p, _ = Minv.shape
+    rows = torch.where(cval, c_idx, p)[:, :, None].expand(-1, -1, Zc.shape[-1])
+    z = Zc.new_zeros((n_sub, p + 1, Zc.shape[-1])).scatter_(1, rows, Zc)
+    U = (Minv @ z[:, :p]).mT
+    return Ub + torch.where(f[:, None, :], U, 0.0)
+
+
+def compact_cols(B: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(n_sub, p, q) -> (n_sub, p, b_pad): the columns at ``idx``
+    (n_sub, b_pad) int64."""
+    return torch.gather(B, 2, idx[:, None, :].expand(-1, B.shape[1], -1))
+
+
+def harmonic_parameter_basis_compact(
+    A_con: torch.Tensor,
+    int_mask: torch.Tensor,
+    par_idx: torch.Tensor,
+    par_valid: torch.Tensor,
+    solver_type: str = "lu",
+) -> torch.Tensor:
+    """Column-compacted :func:`harmonic_parameter_basis`: Hc (n_sub, p,
+    b_pad) with u = Hc @ w for parameter data w at the dofs listed in
+    ``par_idx`` (n_sub, b_pad) int64, ``par_valid`` marking the real slots.
+    The solve carries b_pad right-hand sides instead of p mostly-zero ones
+    (reference: the ring_dofs vectors of MsGFEMRingCoarseSpace,
+    coarse_spaces.hh:966-1096)."""
+    i = int_mask.to(torch.bool)
+    Aip = compact_cols(torch.where(i[:, :, None], A_con, 0.0), par_idx)
+    Aip = torch.where(par_valid[:, None, :], Aip, 0.0)
+    fac = factor_batched(masked_operator(A_con, i), solver_type,
+                         mode="factors")
+    X = -fac.solve(Aip)
+    X = torch.where(i[:, :, None] & par_valid[:, None, :], X, 0.0)
+    p = A_con.shape[-1]
+    E = ((torch.arange(p, device=A_con.device)[None, :, None]
+          == par_idx[:, None, :]) & par_valid[:, None, :])
+    return X + E.to(A_con.dtype)
+
+
+def harmonic_parameter_basis(
+    A_con: torch.Tensor,
+    int_mask: torch.Tensor,
+    par_mask: torch.Tensor,
+    solver_type: str = "lu",
+) -> torch.Tensor:
+    """Implicit basis of the A-harmonic space: Hfull (n_sub, p, p) with
+    u = Hfull @ w for parameter data w supported on ``par_mask``; the
+    columns outside par_mask are zero.
+
+    Hfull = [X; I] with X = -A_ii^{-1} A_i,par: the constraint
+    (A_con u)_i = 0 on ``int_mask`` solved for all unit parameter data at
+    once (the batched replacement of the reference's saddle-point Lagrange
+    blocks, coarse_spaces.hh:763-778)."""
+    i = int_mask.to(torch.bool)
+    b = par_mask.to(torch.bool)
+    Aip = torch.where(i[:, :, None] & b[:, None, :], A_con, 0.0)
+    fac = factor_batched(masked_operator(A_con, i), solver_type,
+                         mode="factors")
+    X = -fac.solve(Aip)
+    X = torch.where(i[:, :, None] & b[:, None, :], X, 0.0)
+    return X + torch.diag_embed(b.to(A_con.dtype))

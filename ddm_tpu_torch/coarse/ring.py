@@ -1,12 +1,15 @@
-"""Ring coarse space: eigenproblems restricted to the overlap ring, plus an
+"""Ring coarse spaces: eigenproblems restricted to the overlap ring, plus an
 energy-minimal extension to the interior.
 
-Counterpart of the ``geneo_ring`` half of ``ddm_tpu/coarse/ring.py``
-(reference: GenEORingCoarseSpace, coarse_spaces.hh:502-648): the
-per-subdomain eigenproblem shrinks from subdomain size to the size of the
-overlap ring (bdist <= 2*overlap + 1, NeumannRegion::ExtendedOverlap), and
-its eigenvectors are extended energy-minimally inward, with Dirichlet data
-one layer inside the ring's inner boundary (coarse_spaces.hh:572-598).  The
+Counterpart of ``ddm_tpu/coarse/ring.py``.  ``geneo_ring`` (reference:
+GenEORingCoarseSpace, coarse_spaces.hh:502-648): the per-subdomain
+eigenproblem shrinks from subdomain size to the size of the overlap ring
+(bdist <= 2*overlap + 1, NeumannRegion::ExtendedOverlap), and its
+eigenvectors are extended energy-minimally inward, with Dirichlet data one
+layer inside the ring's inner boundary (coarse_spaces.hh:572-598).
+``msgfem_ring`` (MsGFEMRingCoarseSpace, coarse_spaces.hh:913-1163): the
+MsGFEM reduced pencil on the ring (bdist <= 2*overlap), with the ring's
+A-harmonic parameter basis at compact size, then the same extension.  The
 reference's ring index bookkeeping becomes boolean masks on the padded
 subdomain batch plus host compaction maps.
 
@@ -34,8 +37,9 @@ from .extension import (
     energy_minimal_extension_sparse,
     expand_rows,
     extension_inverse_of,
+    harmonic_parameter_basis_compact,
 )
-from .geneo import region_neumann
+from .geneo import dirichlet_mask_sub, region_neumann
 
 ROUTES = {"pcg": 0, "direct": 0, "escalations": 0}
 
@@ -145,6 +149,79 @@ def geneo_ring_coarse_space(p, ptree: ParamTree, fine=None) -> CoarseBasis:
     with scoped("Eigensolver", "extension", device):
         ext = _ring_extension(p, ptree, ext_cfg, ext_free, data, fine,
                               local_cols)
+    valid_t = t(valid)
+    combined = torch.where(t(ext_free)[:, None, :], ext, V_ring)
+    combined = torch.where(valid_t[:, None, :], combined, 0.0)
+    return finalize_basis(combined, pou, valid_t, active)
+
+
+def msgfem_ring_coarse_space(p, ptree: ParamTree, fine=None) -> CoarseBasis:
+    """p: api.DDMProblem.  Config subtrees ``msgfem_ring.eigensolver`` and
+    ``msgfem_ring.extension``; ``fine`` as in
+    :func:`geneo_ring_coarse_space`."""
+    topo, device = p.topo, p.device
+    # as in geneo_ring_coarse_space, the JAX package's larger refinement
+    # budget (with_refine) has no reader in the exact f64 GEVP here
+    params = EigensolverParams.from_ptree(ptree.sub("msgfem_ring.eigensolver"))
+    ext_cfg = ptree.sub("msgfem_ring.extension")
+    shrink = ptree.sub("pou").get("shrink", 0)
+    valid, ov = topo.valid, topo.overlap
+    ring_width = 2 * ov - 2 * shrink
+    boundary = np.asarray(topo.boundary)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), device=device)
+
+    ring = valid & (topo.bdist <= 2 * ov)
+    inside_rb = ring & (topo.bdist == 2 * ov)  # innermost ring layer
+    dmask = dirichlet_mask_sub(p).cpu().numpy()
+    # dof classes within the ring (coarse_spaces.hh:986-1001)
+    bnd_class = ring & (boundary | inside_rb) & ~dmask
+    int_class = ring & ~bnd_class & ~dmask
+
+    # everything at ring size (host compaction maps)
+    idx, cval, pos, _ = compact_maps(ring & ~dmask)
+    idx_t, cval_t, pos_t = t(idx).long(), t(cval), t(pos).long()
+    with scoped("Eigensolver", "assemble Neumann", device):
+        A_rc = compact_mat(region_neumann(p, ring), idx_t)
+    A_rc = torch.where(cval_t[:, :, None] & cval_t[:, None, :], A_rc, 0.0)
+    pou = torch.as_tensor(p.pou, dtype=torch.float64, device=device)
+    # mod_pou is zero at bdist >= shrink + ring_width (coarse_spaces.hh:971-973)
+    mod_pou = torch.where(t(topo.bdist < shrink + ring_width), pou, 0.0)
+    B_c = scale_matrix_with_pou(A_rc, torch.gather(mod_pou, 1, idx_t))
+
+    int_c = torch.gather(t(int_class), 1, idx_t) & cval_t
+    par_c = torch.gather(t(bnd_class), 1, idx_t) & cval_t
+    pidx, pval, _, _ = compact_maps(par_c.cpu().numpy())
+    pidx_t, pval_t = t(pidx).long(), t(pval)
+
+    with scoped("Eigensolver", "harmonic basis", device):
+        A_con = A_rc + torch.diag_embed((~cval_t).to(A_rc.dtype))
+        Hc = harmonic_parameter_basis_compact(A_con, int_c, pidx_t, pval_t)
+        del A_con
+    with scoped("Eigensolver", "reduced pencil", device):
+        # Hc^T A Hc at (r_pad, b_pad), in f64 (the JAX package measured a
+        # double-single formation to NaN the GEVP on this near-singular
+        # pencil)
+        Ahat = Hc.mT @ (A_rc @ Hc)
+        Bhat = Hc.mT @ (B_c @ Hc)
+        del A_rc, B_c
+        Ahat = 0.5 * (Ahat + Ahat.mT)
+        Bhat = 0.5 * (Bhat + Bhat.mT)
+        Ahat = Ahat + torch.diag_embed((~pval_t).to(Ahat.dtype))
+
+    with scoped("Eigensolver", "solve GEVP", device):
+        _, W, active = solve_gevp(Ahat, Bhat, params,
+                                  spd=getattr(p.disc, "definite", True))
+    del Ahat, Bhat
+    V_ring = expand_rows(torch.einsum("sqb,skb->skq", Hc, W), pos_t)
+
+    # the extension from the bdist == shrink + ring_width - 1 layer
+    ext_bnd = valid & (topo.bdist == shrink + ring_width - 1)
+    ext_free = valid & (topo.bdist > shrink + ring_width - 1)
+    data = torch.where(t(ext_bnd)[:, None, :], V_ring, 0.0)
+    with scoped("Eigensolver", "extension", device):
+        ext = _ring_extension(p, ptree, ext_cfg, ext_free, data, fine)
     valid_t = t(valid)
     combined = torch.where(t(ext_free)[:, None, :], ext, V_ring)
     combined = torch.where(valid_t[:, None, :], combined, 0.0)

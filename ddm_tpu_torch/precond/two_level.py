@@ -3,8 +3,8 @@
 Counterpart of ``ddm_tpu/precond/two_level.py`` (reference:
 TwoLevelSchwarzPreconditioner, examples/pdelab_schwarz.hh:26-205): the
 fine-level Schwarz preconditioner plus a coarse space plus the Galerkin
-correction, combined additively or multiplicatively.  The ``pou``,
-``geneo`` and ``geneo_ring`` coarse spaces are ported.
+correction, combined additively or multiplicatively, with the ten coarse
+spaces of the JAX package.
 """
 
 from __future__ import annotations
@@ -27,23 +27,41 @@ def build_coarse_space(p, cs_type: str, ptree: ParamTree, fine=None):
             p.topo, p.pou, templates=templates,
             dirichlet_mask=p.disc.dirichlet_mask, device=p.device,
         )
-    if cs_type == "geneo":
+    if cs_type in ("geneo", "algebraic_geneo", "constraint_geneo"):
         from ..coarse.geneo import geneo_coarse_space
 
-        return geneo_coarse_space(p, ptree)
+        return geneo_coarse_space(
+            p, ptree, algebraic=cs_type == "algebraic_geneo",
+            constrained=cs_type == "constraint_geneo")
     if cs_type == "geneo_ring":
         from ..coarse.ring import geneo_ring_coarse_space
 
         # the ring extension may reuse the fine level's explicit inverse
         return geneo_ring_coarse_space(p, ptree, fine=fine)
-    raise NotImplementedError(f"coarse space '{cs_type}' is not ported")
+    if cs_type == "msgfem_ring":
+        from ..coarse.ring import msgfem_ring_coarse_space
+
+        return msgfem_ring_coarse_space(p, ptree, fine=fine)
+    if cs_type in ("msgfem", "algebraic_msgfem", "msgfem_euclid"):
+        from ..coarse.msgfem import msgfem_coarse_space
+
+        return msgfem_coarse_space(p, ptree, variant=cs_type)
+    if cs_type == "harmonic_extension":
+        from ..coarse.harmonic import harmonic_extension_coarse_space
+
+        return harmonic_extension_coarse_space(p, ptree)
+    if cs_type == "svd":
+        from ..coarse.svd import svd_coarse_space
+
+        return svd_coarse_space(p, ptree)
+    raise ValueError(f"Unknown coarse space type '{cs_type}'")
 
 
 # coarse spaces whose construction reuses the fine level's explicit inverse:
 # the fine level is built first for them; every other coarse basis is built
 # before the fine factorization, so peak memory holds either the GEVP
 # pencils or the fine inverse, not both
-_CS_NEEDS_FINE = {"geneo_ring"}
+_CS_NEEDS_FINE = {"geneo_ring", "msgfem_ring"}
 
 
 def build_two_level(p):

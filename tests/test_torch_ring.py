@@ -393,15 +393,15 @@ def test_setup_problem_defaults_to_the_card(monkeypatch):
 
 
 def test_unported_coarse_space_and_pencil_raise(state):
-    """An unported coarse space raises, and so does an unported (iterative)
-    eigensolver type, whether the pencil is definite or not."""
+    """As in the JAX package: an unknown coarse space raises ValueError, and
+    an iterative eigensolver type refuses an indefinite pencil."""
     p = state["p"]
     pt = _ptree(tapi)
-    pt["coarsespace.type"] = "msgfem_ring"
-    with pytest.raises(NotImplementedError):
+    pt["coarsespace.type"] = "no_such_space"
+    with pytest.raises(ValueError, match="Unknown coarse space type"):
         build_two_level(dataclasses.replace(p, ptree=pt))
     pt["geneo_ring.eigensolver.type"] = "lobpcg"
     params = EigensolverParams.from_ptree(pt.sub("geneo_ring.eigensolver"))
     eye = torch.eye(4, dtype=torch.float64)[None]
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(ValueError, match="SPD"):
         solve_gevp(eye, eye, params, spd=False)
