@@ -39,7 +39,14 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    at the reduction 1e-8 and the solutions in a second run of both sides
    that iterates to the residual floor (at 1e-8 GMRES leaves the weaker
    spaces' solutions up to 2e-4 from a sparse direct solve, farther apart
-   than 1e-6);
+   than 1e-6); then the GenEO dd slice on islands P2 triangles 16^2 / 8
+   RCB subdomains; then the nonlinear example's Newton solve
+   (-Δu + 10 u² = |x|², BiCGStab under multiplicative two-level Schwarz
+   with LU subdomain and coarse solves, the shipped ini): Q1 16^2 / (2, 2)
+   and P2 triangles 8^2 / 4 RCB subdomains with the dd coarse solve on the
+   card (Newton counts equal, inner counts within 1 per step, solutions
+   within 1e-6), and BASELINE config 5's size, Q1 64^2 / 16, f64 on both
+   sides (Newton and inner counts equal);
 5. the main paths, nev 8, Cholesky coarse solve, restart 50 to 1e-8 with
    verified termination, through the user entry points ``setup_problem ->
    build_preconditioner -> solve -> solution``, each run cold then warm,
@@ -91,6 +98,14 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    * ``dg_f64`` and ``dg_dd`` (dd subdomain and coarse inverses: the kernel
      on nonsymmetric LU inverses at (144, 1280, 1280) and (1, 864, 864));
 
+   and the GenEO dd path on P2 triangles, islands on 192^2 cells (148,225
+   dofs) / 256 RCB subdomains, overlap 2, GMRES(50), built by hand as
+   tests/test_p2.py does (``setup_problem`` takes no degree):
+
+   * ``p2_geneo_dd`` (dd subdomain and coarse inverses: the kernel at
+     (256, 1072, 1072) and (1, 2048, 2048)), held to the JAX package's
+     P2 test bound of 40 iterations;
+
    and five paths of other coarse spaces and of the iterative eigensolver:
 
    * ``geneo_lobpcg`` (islands 384^2 / 256, geneo with
@@ -117,9 +132,21 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    timed against one batched product with the pencil, with the device
    kernels it ran;
 
+   and last the nonlinear paths, 148,225 dofs each, through the example's
+   ``main`` with the shipped ini (Newton to 1e-8, BiCGStab, multiplicative,
+   LU subdomain and coarse solves), 256 RCB subdomains: ``newton_q1_f64``
+   (Q1 on 384^2), ``newton_p2_f64`` and ``newton_p2_dd`` (P2 triangles on
+   192^2; dd: the kernel at (1, 1024, 1024) in every coarse apply), each
+   printing its Newton and inner counts, defect history and per Newton
+   step the extract / factor / Galerkin / BiCGStab seconds.  Each must
+   converge, and a fresh residual of its solution must read at most the
+   Newton reduction times the first defect; dd must take f64's Newton
+   count, with at most 2 inner iterations per Newton step more in all;
+
 6. after each dd path's warm run, the kernel against its plain version at
-   that path's shapes (msgfem_dd: its coarse shape), on the path's own
-   inverses, with CUDA-event
+   that path's shapes (msgfem_dd: its coarse shape; newton_p2_dd: the
+   coarse shape of its last Newton step), on the path's own inverses, with
+   CUDA-event
    timings (and, for the ring paths, the f64 and dd fine-level apply
    times), each with its launch plan, its share of the bound
    and, as a reference line over the same bytes, the f64 cuBLAS matvec of
@@ -175,11 +202,12 @@ import torch
 MAX_ITERS = {"geneo_dd": 16 + 2, "ring_f64": 15 + 2, "ring_dd": 15 + 2,
              "hex_ov1_dd": 19 + 2, "elast_f64": 100, "elast_dd": 100,
              "unstr_f64": 30, "dg_f64": 50, "geneo_lobpcg": 16 + 2,
-             "msgfem_dd": 45, "msgfem_ring_f64": 60}
+             "msgfem_dd": 45, "msgfem_ring_f64": 60,
+             "p2_geneo_dd": 40}  # tests/test_p2.py:test_p2_ddm_solve
 LOBPCG_RETRY_TOL = 1e-8  # tests/test_lobpcg.py:169
 ESTIMATE_HIT_MAX = 46 + 3
 TRUE_RES_MAX = {"islands": 1e-7, "hex": 1e-7, "elast": 2e-8, "unstr": 1e-7,
-                "dg": 1e-7, "tet": 2e-8}
+                "dg": 1e-7, "tet": 2e-8, "p2": 1e-7}
 SOLUTION_TOL = 1e-6  # small-input card solution against the CPU's
 # The phase-4 coarse-space checks (TIGHT_CHECKS) compare solutions in a
 # second run of both sides at TIGHT_REDUCTION: at 1e-8 GMRES leaves the
@@ -242,6 +270,9 @@ PATHS = {
                          {"algebraic_msgfem.eigensolver.nev": 10}),
     "harmonic_extension": ("islands", "harmonic_extension", 2, {}),
     "svd": ("islands", "svd", 2, {}),
+    # islands on P2 triangles
+    "p2_geneo_f64": ("p2", "geneo", 2, {}),
+    "p2_geneo_dd": ("p2", "geneo", 2, DD),
 }
 # phase 4: (path on the card, its reference on the CPU)
 SMALL_CHECKS = [("geneo_dd", "geneo_f64"), ("ring_dd", "ring_f64"),
@@ -253,7 +284,8 @@ SMALL_CHECKS = [("geneo_dd", "geneo_f64"), ("ring_dd", "ring_f64"),
                 ("algebraic_msgfem", "algebraic_msgfem"),
                 ("msgfem_ring_f64", "msgfem_ring_f64"),
                 ("harmonic_extension", "harmonic_extension"), ("svd", "svd"),
-                ("geneo_lobpcg", "geneo_lobpcg")]
+                ("geneo_lobpcg", "geneo_lobpcg"),
+                ("p2_geneo_dd", "p2_geneo_f64")]
 TIGHT_CHECKS = {"algebraic_geneo", "constraint_geneo", "msgfem_dd",
                 "msgfem_euclid", "algebraic_msgfem", "msgfem_ring_f64",
                 "harmonic_extension", "svd", "geneo_lobpcg"}
@@ -261,7 +293,7 @@ TIGHT_CHECKS = {"algebraic_geneo", "constraint_geneo", "msgfem_dd",
 MAIN_PATHS = ("geneo_dd", "geneo_lobpcg", "ring_f64", "ring_dd", "msgfem_dd",
               "msgfem_ring_f64", "hex_ov1_dd", "hex_ov2_f64", "hex_ov2_lobpcg",
               "hex_ov2_dd", "elast_f64", "elast_dd", "unstr_f64",
-              "unstr_lobpcg", "unstr_dd", "dg_f64", "dg_dd")
+              "unstr_lobpcg", "unstr_dd", "dg_f64", "dg_dd", "p2_geneo_dd")
 # (dense path, LOBPCG path) on the same pencils, for the A/B lines
 GEVP_AB = [("geneo_dd", "geneo_lobpcg"), ("unstr_f64", "unstr_lobpcg"),
            ("hex_ov2_f64", "hex_ov2_lobpcg")]
@@ -269,10 +301,25 @@ GEVP_AB = [("geneo_dd", "geneo_lobpcg"), ("unstr_f64", "unstr_lobpcg"),
 # axis and parts, except for the L-shape (refinements of its mesh file and
 # the number of RCB subdomains) and the tet bar (fixed cells, RCB)
 FULL = {"islands": (384, (16, 16)), "hex": (56, (8, 8, 8)),
-        "elast": (256, (16, 16)), "unstr": (4, 128), "dg": (192, (12, 12))}
+        "elast": (256, (16, 16)), "unstr": (4, 128), "dg": (192, (12, 12)),
+        "p2": (192, 256)}
 SMALL = {"islands": (32, (4, 4)), "hex": (12, (2, 2, 2)),
          "elast": (32, (4, 4)), "unstr": (1, 8), "dg": (16, (2, 2)),
-         "tet": ((8, 2, 3), 4)}
+         "tet": ((8, 2, 3), 4), "p2": (16, 8)}
+# the nonlinear example (BASELINE config 5's problem) with its shipped ini
+NEWTON_INI = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "ddm_tpu_torch", "examples", "configs",
+                          "nonlinearpoisson.ini")
+P2_ARGS = ["-degree", "2", "-simplex", "true"]
+DD_COARSE = ["-coarse_solver.precision", "dd"]
+# path -> (cells per axis, RCB subdomains, further -key value arguments)
+NEWTON_PATHS = {"newton_q1_f64": (384, 256, []),
+                "newton_p2_f64": (192, 256, P2_ARGS),
+                "newton_p2_dd": (192, 256, P2_ARGS + DD_COARSE)}
+# phase 4: (label, cells, parts or RCB count, arguments, dd on the card)
+NEWTON_SMALL = [("newton_q1_dd", 16, (2, 2), [], True),
+                ("newton_p2_dd", 8, 4, P2_ARGS, True),
+                ("config5_f64", 64, 16, [], False)]
 LSHAPE_CELLS = 22  # coarse L-shape: 22 x 22 cells, the 11 x 11 quadrant removed
 
 
@@ -409,8 +456,39 @@ def path_problem(api, path, size, parts, device, reduction=1e-8):
     if kind == "unstr":
         return api.setup_problem(pt, grid=api.make_grid(pt), n_sub=parts,
                                  device=device)
+    if kind == "p2":
+        return p2_problem(api, pt, size, parts, device)
     return api.setup_problem(pt, grid=api.make_grid(pt, dim=len(parts)),
                              parts=parts, device=device)
+
+
+def p2_problem(api, pt, size, n_sub, device):
+    """Islands on P2 triangles, size^2 cells, ``n_sub`` RCB subdomains,
+    Jacobi-equilibrated: the steps of ``setup_problem`` (which takes no
+    degree) by hand, in its scopes, as tests/test_p2.py builds it."""
+    from ddm_tpu_torch.core.indexmaps import pou_weights
+    from ddm_tpu_torch.core.setup import setup_topology
+    from ddm_tpu_torch.core.sparse import jacobi_equilibrate
+    from ddm_tpu_torch.fem import problems
+    from ddm_tpu_torch.fem.discretize import Discretization
+    from ddm_tpu_torch.fem.grids import structured_grid
+    from ddm_tpu_torch.obs.logger import scoped
+
+    with scoped("Setup", "discretize (host pattern)", device):
+        disc = Discretization(structured_grid((size, size), simplex=True),
+                              problems.islands(), device, degree=2)
+    with scoped("Setup", "assemble + constrain", device):
+        A, rhs, g = disc.constrained_system()
+    with scoped("Setup", "equilibrate", device):
+        A, rhs, scale = jacobi_equilibrate(A, rhs)
+    with scoped("Setup", "topology (host)"):
+        topo, elem_part = setup_topology(disc, overlap=pt.get("overlap", 2),
+                                         n_sub=n_sub)
+    with scoped("Setup", "pou (host)"):
+        pou = pou_weights(topo, "distance")
+    return api.DDMProblem(disc=disc, topo=topo, A=A, rhs=rhs, g=g, pou=pou,
+                          ptree=pt, device=device, elem_part=elem_part,
+                          scale=scale)
 
 
 def size_label(path, size, parts):
@@ -419,6 +497,8 @@ def size_label(path, size, parts):
         return f"L-shape refine {size} / {parts} RCB"
     if kind == "tet":
         return f"tet bar {size[0]}x{size[1]}x{size[2]} / {parts} RCB"
+    if kind == "p2":
+        return f"P2 {size}^2 / {parts} RCB"
     return f"{size}^{len(parts)}/{math.prod(parts)}"
 
 
@@ -467,6 +547,93 @@ def run_path(path, size, parts, device, reduction=1e-8):
     out["true_res"] = float(torch.linalg.norm(p.A.mv(res.x) - p.rhs)
                             / torch.linalg.norm(p.rhs))
     return out
+
+
+def newton_argv(size, n_sub, args, dd=False):
+    """The example's command line: the shipped ini, ``size``^2 cells,
+    ``n_sub`` subdomains, ``args``, and with ``dd`` the dd coarse solve."""
+    return (["-ini_file", NEWTON_INI, "-gridsize", str(size), "-subdomains",
+             str(n_sub)] + list(args) + (DD_COARSE if dd else []))
+
+
+def run_newton(argv, device, parts=None):
+    """One Newton solve of the nonlinear example through its ``main`` (or,
+    with ``parts``, its ``setup`` on that block partition and the solver's
+    ``solve``), with the kernel's launch counts zeroed just before and read
+    just after; then a fresh residual of the solution.  Returns a dict of
+    the run's objects and counts."""
+    from ddm_tpu_torch.examples import nonlinearpoisson as example
+    from ddm_tpu_torch.kernels import ddmatvec
+    from ddm_tpu_torch.obs.logger import Logger
+
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    Logger.reset()
+    ddmatvec.dd_matvec_cuda.shapes.clear()
+    t0 = time.perf_counter()
+    if parts is None:
+        solver, res = example.main(argv, device)
+    else:
+        solver = example.setup(example.nonlinear_ptree(argv), device, parts)
+        res = solver.solve()
+    if cuda:
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    shapes = dict(ddmatvec.dd_matvec_cuda.shapes)
+    log = Logger.get()
+    peak = max(log.peak_bytes, torch.cuda.max_memory_allocated(device)) if cuda else 0
+    r, _ = solver.disc.residual_jacobian(res.u)
+    return dict(solver=solver, res=res, secs=secs, shapes=shapes,
+                launches=sum(shapes.values()), peak_gib=peak / 2**30,
+                fresh=float(torch.linalg.norm(r)),
+                events={k: v.total for k, v in log.events.items()})
+
+
+def check_newton(path, run, r, dd):
+    """Print one Newton run's counts, defect history, per-step split, peak
+    and launches; raise unless it converged, its solution's fresh residual
+    meets the Newton target, and it launched the kernel exactly where the
+    dd coarse solve must (3 launches per coarse apply)."""
+    solver, res = r["solver"], r["res"]
+    topo, steps = solver.topo, solver.steps
+    reduction = solver.ptree.get("newton.Reduction", 1e-8)
+    ev = r["events"]
+    split = ", ".join(f"{label} {ev[key]:.3f} s" for key, label in (
+        (("Driver", "Setup problem"), "setup"),
+        (("Newton", "extraction map (host)"), "extraction map"),
+        (("Newton", "residual + Jacobian"), "residual + Jacobian"))
+        if key in ev)
+    print(f"{path} ({run}): n_dofs {solver.disc.n_dofs}, n_sub {topo.n_sub}, "
+          f"n_pad {topo.n_pad}, Newton {res.iterations} its (converged "
+          f"{res.converged}), inner {res.linear_iterations} = "
+          f"{[x['inner'] for x in steps]}, defects "
+          f"{[float(f'{d:.6e}') for d in res.history]}, fresh residual "
+          f"{r['fresh']:.3e} (limit {reduction * res.defect0:.3e}), "
+          f"{split}, total {r['secs']:.3f} s, peak mem {r['peak_gib']:.2f} GiB, "
+          f"dd_matvec launches {r['launches']} by shape {r['shapes']}",
+          flush=True)
+    for k, x in enumerate(steps, start=1):
+        print(f"{path} ({run}) step {k}: inner {x['inner']} (reduction "
+              f"{x['reduction']:.3e}), extract {x['extract']:.3f} s, factor "
+              f"{x['factor']:.3f} s, galerkin {x['galerkin']:.3f} s, "
+              f"bicgstab {x['krylov']:.3f} s, applies {x['fine_applies']} "
+              f"fine + {x['coarse_applies']} coarse", flush=True)
+    u = res.u
+    if not (res.converged and r["fresh"] <= reduction * res.defect0
+            and u.shape == (solver.disc.n_dofs,)
+            and bool(torch.isfinite(u).all())):
+        fail(f"{path} did not converge as required")
+    want = {}
+    if dd:
+        V = solver.prec.precs[1].V
+        n_c = V.shape[0] * V.shape[1]
+        want[(1, n_c, n_c)] = 3 * sum(x["coarse_applies"] for x in steps)
+    if not (r["shapes"] == want and all(want.values())):
+        fail(f"{path} did not run through the dd_matvec kernel as expected: "
+             f"{r['shapes']} != {want}")
 
 
 PHASES = [(("Schwarz", "extract"), "extract"),
@@ -653,20 +820,21 @@ def check_path(path, run, r):
         fail("ring_dd did not take the direct extension route")
 
 
-def time_kernel(ddmatvec, path, r, flush_buf, gen, levels=("fine", "coarse")):
+def time_kernel(ddmatvec, path, precs, shapes, flush_buf, gen,
+                levels=("fine", "coarse")):
     """The kernel against its plain version and the f64 product at the
-    shapes of a dd path (of its ``levels``), on that path's own inverses,
-    with CUDA-event times; returns one entry per shape for the kernels
-    line."""
-    fine, coarse = r["M"].precs
-    dev = r["p"].device
+    shapes of a dd path (of its ``levels``), on that path's own inverses
+    (``precs``: its fine and coarse preconditioners), with CUDA-event
+    times; ``shapes`` holds the path's launches by shape.  Returns one
+    entry per shape for the kernels line."""
+    fine, coarse = precs
     entries = []
     for label, fac in (("fine", fine.factors), ("coarse", coarse.coarse)):
         if label not in levels or not hasattr(fac, "inv_hi"):
             continue
         hi, lo = fac.inv_hi, fac.inv_lo
         n_sub, P, _ = hi.shape
-        dv = torch.randn((n_sub, P), generator=gen, device=dev,
+        dv = torch.randn((n_sub, P), generator=gen, device=hi.device,
                          dtype=torch.float64)
         abs_err, pl = check_kernel(ddmatvec, hi, lo, dv, f"{path} {label}")
         # a coarse inverse may fit in the 50 MB L2 (33.6 MB at n_c 2048),
@@ -690,7 +858,7 @@ def time_kernel(ddmatvec, path, r, flush_buf, gen, levels=("fine", "coarse")):
               f"matvec of hi + lo (reference) {f64_ms:.4f} ms", flush=True)
         entries.append({
             "path": path, "shape": [n_sub, P, P],
-            "launches": r["shapes"][(n_sub, P, P)],
+            "launches": shapes[(n_sub, P, P)],
             "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "share_of_bound": b_ms / ms, "f64_library_ms": f64_ms,
@@ -944,6 +1112,33 @@ def main():
             fail(f"small-input {path} on the card disagrees with the CPU")
         del g, c
 
+    # the nonlinear example: the card (dd coarse solve where named) against
+    # the exact f64 run on the CPU
+    for label, size, parts, args, dd in NEWTON_SMALL:
+        blocks = parts if isinstance(parts, tuple) else None
+        argv = newton_argv(size, math.prod(blocks) if blocks else parts, args)
+        g = run_newton(argv + (DD_COARSE if dd else []), dev, blocks)
+        c = run_newton(argv, cpu, blocks)
+        gs, cs = g["solver"].steps, c["solver"].steps
+        e_small = rel_err(g["res"].u.cpu(), c["res"].u)
+        inner_g = [x["inner"] for x in gs]
+        inner_c = [x["inner"] for x in cs]
+        print(f"small Newton {label} ({size}^2, {parts}, n_pad "
+              f"{g['solver'].topo.n_pad}): card {g['res'].iterations} its, "
+              f"inner {inner_g}, cpu {c['res'].iterations} its, inner "
+              f"{inner_c}, solution rel diff {e_small:.3e}, fresh residual "
+              f"{g['fresh']:.3e} / {c['fresh']:.3e}, launches "
+              f"{g['launches']} by shape {g['shapes']}", flush=True)
+        same_inner = (inner_g == inner_c if not dd else
+                      len(inner_g) == len(inner_c) and all(
+                          abs(a - b) <= 1 for a, b in zip(inner_g, inner_c)))
+        n_dd = 3 * sum(x["coarse_applies"] for x in gs) if dd else 0
+        if not (g["res"].converged and c["res"].converged
+                and g["res"].iterations == c["res"].iterations and same_inner
+                and e_small <= SOLUTION_TOL and g["launches"] == n_dd):
+            fail(f"small Newton {label} on the card disagrees with the CPU")
+        del g, c
+
     # -- 5. main paths at full size, cold then warm; 6. their kernel shapes --
     flush_buf = torch.empty(2 * 50 * 2**20, dtype=torch.uint8, device=dev)
     launches, entries, gevp = {}, [], {}
@@ -996,10 +1191,11 @@ def main():
             print(line, flush=True)
             del fine, d
         if path == "msgfem_dd":  # its fine shape is ring_dd's
-            entries += time_kernel(ddmatvec, path, r, flush_buf, gen,
-                                   levels=("coarse",))
+            entries += time_kernel(ddmatvec, path, r["M"].precs, r["shapes"],
+                                   flush_buf, gen, levels=("coarse",))
         elif path != "geneo_dd":  # its one shape is ring_dd's fine shape
-            entries += time_kernel(ddmatvec, path, r, flush_buf, gen)
+            entries += time_kernel(ddmatvec, path, r["M"].precs, r["shapes"],
+                                   flush_buf, gen)
     r = None
 
     # the dense GEVP against LOBPCG on the same pencils (warm runs)
@@ -1026,6 +1222,29 @@ def main():
             fail(f"{lob}'s LOBPCG eigenpairs disagree with {dense}'s dense "
                  f"ones on the same pencils")
     eigh_probe(dev, gen)
+
+    # the nonlinear paths, cold then warm
+    newton = {}
+    for path, (size, n_sub, args) in NEWTON_PATHS.items():
+        dd = "-coarse_solver.precision" in args
+        for run in ("cold", "warm"):
+            r = None
+            r = run_newton(newton_argv(size, n_sub, args), dev)
+            check_newton(path, run, r, dd)
+        res = r["res"]
+        newton[path] = (res.iterations, res.linear_iterations)
+        launches[path] = r["launches"]
+        if dd:
+            f64_its, f64_inner = newton[path.replace("_dd", "_f64")]
+            if not (res.iterations == f64_its
+                    and res.linear_iterations <= f64_inner + 2 * f64_its):
+                fail(f"{path} took {res.iterations} Newton steps and "
+                     f"{res.linear_iterations} inner iterations, against "
+                     f"f64's {f64_its} and {f64_inner} (+ 2 per step)")
+            entries += time_kernel(ddmatvec, path, r["solver"].prec.precs,
+                                   r["shapes"], flush_buf, gen,
+                                   levels=("coarse",))
+    r = None
 
     # top-level numbers: the ring_dd path at its fine shape (the first
     # entry); every path's shapes stand in "shapes", each path's total over

@@ -68,16 +68,16 @@ def topology_from_numpy(sub2glob, valid, bdist, boundary, overlap: int,
 
 
 def discretization_from_numpy(grid, problem, n_comp: int, dirichlet_mask,
-                              dirichlet_values, *, device):
+                              dirichlet_values, *, device, degree: int = 1):
     """The port's Discretization of ``grid`` (the port's own Grid over the
-    same nodes and elements) for a problem with ``n_comp`` unknowns per
-    node, with the Dirichlet mask (repeated per component) and the
-    flattened boundary data pinned to the arrays of the JAX package's
-    discretization, so both packages constrain the same dofs to the same
-    values."""
+    same nodes and elements) of polynomial ``degree`` for a problem with
+    ``n_comp`` unknowns per node, with the Dirichlet mask (repeated per
+    component) and the flattened boundary data pinned to the arrays of the
+    JAX package's discretization, so both packages constrain the same dofs
+    to the same values."""
     from .fem.discretize import Discretization
 
-    disc = Discretization(grid, problem, device, n_comp=n_comp)
+    disc = Discretization(grid, problem, device, n_comp=n_comp, degree=degree)
     mask = torch.tensor(np.asarray(dirichlet_mask, bool), device=device)
     if mask.shape != (disc.n_dofs,):
         raise ValueError(f"mask must have n_dofs = {disc.n_dofs} entries")

@@ -13,9 +13,10 @@ and (reference: dune-pdelab LinearElasticity, examples/linearelasticity.cc)
 
     a(u,v) = ∫ 2 μ ε(u):ε(v) + λ (div u)(div v) ,   rhs ∫ f·v
 
-on P1 triangles and tetrahedra (degree-2 rules) and Q1 quadrilaterals and
-hexahedra (tensor-product 2-point Gauss).  The P2 element types of the JAX
-package (``tri2``, ``quad2``) are not ported.  The Jacobian is inverted by
+on P1 triangles and tetrahedra (degree-2 rules), Q1 quadrilaterals and
+hexahedra (tensor-product 2-point Gauss), P2 triangles (``tri2``, the
+degree-4 Dunavant 6-point rule) and Q2 quadrilaterals (``quad2``, 3x3
+Gauss), whose extra dofs ``fem/highorder.py`` numbers.  The Jacobian is inverted by
 ``torch.linalg.inv``/``det`` where the JAX package uses closed forms; the
 element matrices agree to 1e-13 relative.
 """
@@ -35,6 +36,22 @@ def _quad_rule(elem_type: str):
         # degree 2, 3 points, area 1/2
         pts = np.array([[1 / 6, 1 / 6], [2 / 3, 1 / 6], [1 / 6, 2 / 3]])
         return pts, np.full(3, 1 / 6)
+    if elem_type == "tri2":
+        # degree 4 (Dunavant 6-point) for P2 stiffness and mass terms
+        a1, a2 = 0.445948490915965, 0.091576213509771
+        w1, w2 = 0.223381589678011, 0.109951743655322
+        pts = np.array([
+            [a1, a1], [1 - 2 * a1, a1], [a1, 1 - 2 * a1],
+            [a2, a2], [1 - 2 * a2, a2], [a2, 1 - 2 * a2],
+        ])
+        return pts, np.array([w1, w1, w1, w2, w2, w2]) * 0.5
+    if elem_type == "quad2":
+        # 3x3 Gauss on [0,1]^2, x slowest
+        g = np.array([0.5 - 0.5 * np.sqrt(3 / 5), 0.5,
+                      0.5 + 0.5 * np.sqrt(3 / 5)])
+        wg = np.array([5 / 18, 8 / 18, 5 / 18])
+        X, Y = np.meshgrid(g, g, indexing="ij")
+        return np.stack([X.ravel(), Y.ravel()], -1), np.outer(wg, wg).ravel()
     if elem_type == "tet":
         a, b = 0.5854101966249685, 0.1381966011250105
         pts = np.array([[b, b, b], [a, b, b], [b, a, b], [b, b, a]])
@@ -53,6 +70,10 @@ def _shape_funs(elem_type: str, pts: np.ndarray):
     barycentric (1 - sum x, x_0, ..., x_{d-1}); Q1: local nodes in
     lexicographic order (bit dd of the node index = its coordinate dd)."""
     q, d = pts.shape
+    if elem_type == "tri2":
+        return _p2_tri_funs(pts)
+    if elem_type == "quad2":
+        return _q2_quad_funs(pts)
     if elem_type in ("tri", "tet"):
         phi0 = 1 - pts[:, 0]
         for k in range(1, d):  # 1 - x - y [- z], left to right
@@ -71,6 +92,49 @@ def _shape_funs(elem_type: str, pts: np.ndarray):
             phi[:, i] *= f
             for other in range(d):
                 dphi[:, i, other] *= df if other == dd else f
+    return phi, dphi
+
+
+def _p2_tri_funs(pts: np.ndarray):
+    """P2 triangle: vertices (v0, v1, v2), then edge midpoints (e01, e12,
+    e20); products of the barycentric coordinates L."""
+    x, y = pts[:, 0], pts[:, 1]
+    L = [1 - x - y, x, y]
+    dL = [np.array([-1.0, -1.0]), np.array([1.0, 0.0]), np.array([0.0, 1.0])]
+    q = pts.shape[0]
+    phi = np.zeros((q, 6))
+    dphi = np.zeros((q, 6, 2))
+    for i in range(3):
+        phi[:, i] = L[i] * (2 * L[i] - 1)
+        dphi[:, i] = (4 * L[i] - 1)[:, None] * dL[i][None, :]
+    for k, (a, b) in enumerate([(0, 1), (1, 2), (2, 0)]):
+        phi[:, 3 + k] = 4 * L[a] * L[b]
+        dphi[:, 3 + k] = 4 * (L[a][:, None] * dL[b][None, :]
+                              + L[b][:, None] * dL[a][None, :])
+    return phi, dphi
+
+
+def _q2_quad_funs(pts: np.ndarray):
+    """Q2 quadrilateral: 9 nodes at t in {0, 1/2, 1} per axis, tensor
+    lexicographic with x fastest."""
+    def n1d(t):
+        return np.stack([(2 * t - 1) * (t - 1), 4 * t * (1 - t),
+                         t * (2 * t - 1)], -1)
+
+    def dn1d(t):
+        return np.stack([4 * t - 3, 4 - 8 * t, 4 * t - 1], -1)
+
+    nx, ny = n1d(pts[:, 0]), n1d(pts[:, 1])
+    dx, dy = dn1d(pts[:, 0]), dn1d(pts[:, 1])
+    q = pts.shape[0]
+    phi = np.zeros((q, 9))
+    dphi = np.zeros((q, 9, 2))
+    for j in range(3):
+        for i in range(3):
+            k = j * 3 + i
+            phi[:, k] = nx[:, i] * ny[:, j]
+            dphi[:, k, 0] = dx[:, i] * ny[:, j]
+            dphi[:, k, 1] = nx[:, i] * dy[:, j]
     return phi, dphi
 
 
@@ -130,13 +194,18 @@ def element_geometry(quad: ElementQuadrature, xe: torch.Tensor):
     xe: (n_e, nd, d) vertex coordinates.  Returns (xq (n_e, q, d) physical
     points, grads (n_e, q, nd, d) physical shape gradients, jxw (n_e, q)
     |det J| * weight)."""
-    # x(q) = sum_i phi_i(q) x_i, summed left to right in separate ops: the
-    # islands coefficient jumps exactly on some quadrature points, so the
-    # last bit decides which side they land on.  This order reproduces the
-    # JAX package's points bit for bit, on the CPU and on the card alike
-    # (a matmul's blocking would not).  XLA's CPU dot adds the three
-    # products of a triangle as a fused multiply-add chain and the four or
-    # eight of the other elements one rounded add at a time: both kept.
+    # x(q) = sum_i phi_i(q) x_i, summed in separate ops: the islands
+    # coefficient jumps exactly on some quadrature points, so the last bit
+    # decides which side they land on.  These orders reproduce the JAX
+    # package's points bit for bit, on the CPU and on the card alike (a
+    # matmul's blocking would not).  XLA's CPU dot adds the three products
+    # of a triangle as a fused multiply-add chain, and the four, six or
+    # eight of the other elements one rounded add at a time, left to right.
+    # With nine (Q2) it does so for the first eight points only; the ninth
+    # it takes as a remainder row, over 4-column blocks of the flattened
+    # (element, axis) index, as ((p0 + p4) + (p1 + p5)) + ((p2 + p6) +
+    # (p3 + p7)) + p8, the columns past the last full block left to right
+    # (checked bit for bit from 8^2 to 192^2 cells).
     nd = xe.shape[1]
     xq = quad.phi[None, :, 0, None] * xe[:, None, 0, :]
     for i in range(1, nd):
@@ -145,6 +214,14 @@ def element_geometry(quad: ElementQuadrature, xe: torch.Tensor):
             xq = _fma(phi_i.expand_as(xq), x_i.expand_as(xq), xq)
         else:
             xq = xq + phi_i * x_i
+    if nd == 9:
+        p = [(quad.phi[8, i] * xe[:, i, :]).reshape(-1) for i in range(9)]
+        blocked = (((p[0] + p[4]) + (p[1] + p[5]))
+                   + ((p[2] + p[6]) + (p[3] + p[7]))) + p[8]
+        full = blocked.numel() // 4 * 4
+        row = xq[:, 8].reshape(-1).clone()
+        row[:full] = blocked[:full]
+        xq[:, 8] = row.reshape(xq[:, 8].shape)
     J = torch.einsum("qid,eig->eqgd", quad.dphi, xe)  # dx/dxi
     grads = torch.einsum("qid,eqdg->eqig", quad.dphi, torch.linalg.inv(J))
     jxw = torch.abs(torch.linalg.det(J)) * quad.weights[None, :]

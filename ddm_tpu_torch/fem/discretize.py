@@ -4,8 +4,11 @@ Counterpart of ``ddm_tpu/fem/discretize.py`` (reference: GenericDDMProblem,
 examples/generic_ddm_problem.hh:48-407) for nodal P1/Q1 problems on
 triangles, tetrahedra, quadrilaterals and hexahedra: scalar
 convection-diffusion (``n_comp = 1``) or vector-valued elasticity
-(``n_comp = d``, dof = node * n_comp + component).  The JAX package's
-degree-2 spaces are not ported.  The constrained system is the correction form
+(``n_comp = d``, dof = node * n_comp + component); and, with ``degree = 2``,
+scalar P2 triangles and Q2 quadrilaterals, whose edge (and Q2 cell-center)
+dofs follow the mesh vertices (``fem/highorder.py``; reference:
+PkLocalFiniteElementMap degree 2, nonlinearpoisson.cc:104).  The
+constrained system is the correction form
 
     A_c z = b - A g,   rhs zeroed at Dirichlet dofs,  u = g + z
 
@@ -29,11 +32,13 @@ from .assemble import (
     element_dofs,
 )
 from .grids import Grid
+from .highorder import p2_dofs
 from .problems import ElasticityProblem, Problem
 
 
 class Discretization:
-    """Nodal P1/Q1 discretization of ``problem`` on ``grid`` with ``n_comp``
+    """Nodal discretization of ``problem`` on ``grid`` of polynomial
+    ``degree`` 1 (P1/Q1 on the mesh vertices) or 2 (P2/Q2), with ``n_comp``
     unknowns per node; the device tensors it makes live on ``device``."""
 
     #: subdomain Neumann matrices are SPSD (conforming elements are
@@ -41,17 +46,31 @@ class Discretization:
     definite = True
 
     def __init__(self, grid: Grid, problem: Problem | ElasticityProblem,
-                 device, n_comp: int = 1):
+                 device, n_comp: int = 1, degree: int = 1):
         self.grid = grid
         self.problem = problem
         self.device = torch.device(device)
         self.n_comp = n_comp
-        self.n_dofs = grid.n_nodes * n_comp
-        self.quad = ElementQuadrature(grid.elem_type, self.device)
+        self.degree = degree
+        if degree == 1:
+            self._elem_nodes = grid.elems
+            self._node_xy = grid.nodes
+            self._node_boundary = grid.boundary_nodes()
+            basis = grid.elem_type
+        elif degree == 2:
+            if n_comp != 1:
+                raise ValueError("degree 2 is scalar (n_comp = 1) only")
+            (self._elem_nodes, self._node_xy, self._node_boundary,
+             basis) = p2_dofs(grid)
+        else:
+            raise ValueError(f"degree {degree} is not supported (1 or 2)")
+        self.n_dofs = self._node_xy.shape[0] * n_comp
+        self.quad = ElementQuadrature(basis, self.device)
         self.xe = torch.as_tensor(
-            grid.nodes[grid.elems], dtype=torch.float64, device=self.device
+            self._node_xy[self._elem_nodes], dtype=torch.float64,
+            device=self.device
         )
-        rows, cols = element_coo_indices(grid.elems, n_comp)
+        rows, cols = element_coo_indices(self._elem_nodes, n_comp)
         self.pattern = EllPattern.from_coo(rows, cols, self.n_dofs)
         self._matrix_plan = self.pattern.assembly_plan(self.device)
         e = self.dof_tuples().reshape(-1)
@@ -63,14 +82,16 @@ class Discretization:
     # -- masks / boundary data --------------------------------------------
     @cached_property
     def _node_coords(self) -> torch.Tensor:
+        """(n_nodes, d) coordinates of the nodes (with degree 2, the mesh
+        vertices and then the edge and cell-center dofs)."""
         return torch.as_tensor(
-            self.grid.nodes, dtype=torch.float64, device=self.device
+            self._node_xy, dtype=torch.float64, device=self.device
         )
 
     @cached_property
     def dirichlet_mask(self) -> torch.Tensor:
         """(n_dofs,) bool — physical-boundary dofs selected by the problem."""
-        bnd = torch.as_tensor(self.grid.boundary_nodes(), device=self.device)
+        bnd = torch.as_tensor(self._node_boundary, device=self.device)
         node_mask = bnd & self.problem.is_dirichlet(self._node_coords)
         if self.n_comp == 1:
             return node_mask
@@ -121,7 +142,7 @@ class Discretization:
     def dof_tuples(self) -> np.ndarray:
         """(n_elems, nl) global dof ids per element (host): the unit of dof
         membership and ownership for the DDM topology."""
-        return element_dofs(self.grid.elems, self.n_comp)
+        return element_dofs(self._elem_nodes, self.n_comp)
 
     @property
     def stamps_cover_operator(self) -> bool:

@@ -1,8 +1,8 @@
 """Krylov solvers with ISTL-matching semantics, in torch.
 
 Counterpart of ``ddm_tpu/solvers/krylov.py`` (reference: the ISTL solver
-factory's ``cgsolver``, ``restartedgmressolver`` and
-``restartedflexiblegmressolver``):
+factory's ``cgsolver``, ``restartedgmressolver``,
+``restartedflexiblegmressolver`` and ``bicgstabsolver``):
 
 * converged when defect < reduction * defect0, or defect < 1e-30 absolute;
 * CG measures the true residual every iteration (ISTL CGSolver);
@@ -10,7 +10,8 @@ factory's ``cgsolver``, ``restartedgmressolver`` and
   from the Givens recurrence; each restart cycle starts from the recomputed
   preconditioned residual (ISTL RestartedGMResSolver); flexible GMRES is
   right-preconditioned, keeps the preconditioned basis Z and measures the
-  true residual.  The Arnoldi step is
+  true residual; BiCGStab checks the true residual after each half-step.
+  The Arnoldi step is
   two-pass classical Gram-Schmidt (CGS2) on the device; the small Hessenberg
   system (Givens rotations, back substitution) lives on the host, in the
   same f64 arithmetic.
@@ -44,6 +45,8 @@ class KrylovResult:
     # the target (0: never, or CG); under verified termination the solver
     # may go on past it
     estimate_hit: int = 0
+    # BiCGStab: stopped on ISTL's breakdown guard (rho, omega or h)
+    breakdown: bool = False
 
 
 def _norm(x: torch.Tensor) -> float:
@@ -203,6 +206,72 @@ def fgmres_solve(
                             verify, flexible=True)
 
 
+_BREAKDOWN_EPS = 1e-80  # ISTL BiCGSTABSolver's EPSILON breakdown guard
+
+
+def bicgstab_solve(
+    op: Callable, prec: Callable | None, b: torch.Tensor, x0: torch.Tensor,
+    reduction: float = 1e-8, maxit: int = 1000,
+) -> KrylovResult:
+    """Preconditioned BiCGStab, ISTL BiCGSTABSolver semantics (dune-istl
+    solvers.hh):
+
+    * half-step accounting: the true residual norm is checked after the
+      first half-step (x += alpha p_hat) and after the stabilization
+      half-step, like ISTL's ``it += .5``; convergence at a half-step stops
+      there, and ``iterations`` is ceil(half-steps / 2), as ISTL reports;
+    * breakdown: |rho| or |omega| of the previous step, or |h| = <rt, v>,
+      at or below ISTL's EPSILON = 1e-80 stops the iteration with
+      ``breakdown`` set (ISTL throws SolverAbort)."""
+    prec = prec or (lambda d: d)
+    eps = _BREAKDOWN_EPS
+    x = x0
+    r = b - op(x0)
+    rt = r
+    def0 = _norm(r)
+    target = max(reduction * def0, _ABS_LIMIT)
+    hist = np.full(maxit + 1, np.nan)
+    hist[0] = def0
+    p = torch.zeros_like(b)
+    v = torch.zeros_like(b)
+    rho = alpha = omega = 1.0
+    defect, half, brk = def0, 0, False
+    while defect > target and half < 2 * maxit:
+        if abs(rho) <= eps or abs(omega) <= eps:
+            brk = True
+            break
+        rho_new = float(torch.dot(rt, r))
+        beta = (rho_new / rho) * (alpha / omega)
+        p = r + beta * (p - omega * v)
+        phat = prec(p)
+        v = op(phat)
+        h = float(torch.dot(rt, v))
+        rho = rho_new
+        if abs(h) <= eps:
+            brk = True
+            break
+        alpha = rho_new / h
+        x = x + alpha * phat
+        r = r - alpha * v  # s
+        half += 1
+        defect = _norm(r)
+        hist[(half + 1) // 2] = defect
+        if defect <= target or half >= 2 * maxit:
+            break
+        shat = prec(r)
+        t = op(shat)
+        tt = float(torch.dot(t, t))
+        omega = float(torch.dot(t, r)) / (1.0 if abs(tt) <= eps else tt)
+        x = x + omega * shat
+        r = r - omega * t
+        half += 1
+        defect = _norm(r)
+        hist[(half + 1) // 2] = defect
+    return KrylovResult(x=x, iterations=(half + 1) // 2,
+                        converged=defect <= target and not brk, defect0=def0,
+                        defect=defect, history=hist, breakdown=brk)
+
+
 SOLVERS = {
     "cgsolver": cg_solve,
     "cg": cg_solve,
@@ -210,6 +279,8 @@ SOLVERS = {
     "gmres": gmres_solve,
     "restartedflexiblegmressolver": fgmres_solve,
     "fgmres": fgmres_solve,
+    "bicgstabsolver": bicgstab_solve,
+    "bicgstab": bicgstab_solve,
 }
 
 
