@@ -46,7 +46,17 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    and P2 triangles 8^2 / 4 RCB subdomains with the dd coarse solve on the
    card (Newton counts equal, inner counts within 1 per step, solutions
    within 1e-6), and BASELINE config 5's size, Q1 64^2 / 16, f64 on both
-   sides (Newton and inner counts equal);
+   sides (Newton and inner counts equal); then the example drivers through
+   the user's command line ``examples/cli.main``, card against CPU with
+   the same iteration counts and solutions within 1e-6: the shipped
+   poisson.ini at 32^2 / 16 with the scripted islands file, f64 and dd
+   (dd under flexible GMRES, see FGMRES_ARGS; the kernel at the fine and
+   the coarse shape on the card), ``modify_subdomain_matrix`` on simple
+   32^2 / 4, the f32 subdomain precision on simple 32^2 / 16 (counts
+   within 1: the card's and the CPU's f32 sums run in different orders),
+   the elasticity example at 8 x 2 x 3 cells / 2 slabs with the scripted
+   steel-rubber file, and the DG example at 16^2 / 4 with the symmetric
+   scripted file;
 5. the main paths, nev 8, Cholesky coarse solve, restart 50 to 1e-8 with
    verified termination, through the user entry points ``setup_problem ->
    build_preconditioner -> solve -> solution``, each run cold then warm,
@@ -143,6 +153,25 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    Newton reduction times the first defect; dd must take f64's Newton
    count, with at most 2 inner iterations per Newton step more in all;
 
+   and after them six paths through ``examples/cli.main``, each cold and
+   warm, printing the example's split ("Setup problem", "Setup
+   preconditioner", "Linear solve", "Visualisation", total), the phase
+   split and peaks, the true and the recomputed preconditioned residual
+   and the launches by shape: ``poisson_ini_f64`` (the shipped poisson.ini
+   at 384^2 / 256 RCB subdomains, 148,225 dofs: islands, multiplicative
+   GenEO nev 8, GMRES(100) to 1e-10, and its VTK output, written to a
+   temporary directory), ``poisson_ini_dd`` (the same with the scripted
+   islands file and dd subdomain and coarse inverses, flexible GMRES),
+   ``poisson_simple_f64`` and ``poisson_simple_f32`` (problem simple to
+   1e-8; f32: the f32 inverse with exact sparse f64 defect corrections),
+   ``elast3d_f64`` and ``elast3d_dd`` (the shipped linearelasticity.ini on
+   the steel-rubber bar, 80 x 8 x 12 cells, 28,431 dofs, 40 slabs, the
+   scripted coefficients; dd: the kernel at (40, n_pad, n_pad) and
+   (1, 240, 240)), each held to the limits of MAX_ITERS,
+   CLI_TRUE_RES_MAX and ELAST3D_PREC_RES_MAX; then the direct-solver
+   benchmark ``examples/solver_bench.main`` at its defaults (n 512, batch
+   16), whose residuals must lie within 1e-8 (1e-3 for the f32 inverse);
+
 6. after each dd path's warm run, the kernel against its plain version at
    that path's shapes (msgfem_dd: its coarse shape; newton_p2_dd: the
    coarse shape of its last Newton step), on the path's own inverses, with
@@ -158,12 +187,20 @@ last line {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile [path ...]
 
-profiles full-size paths instead (default: the three 2-D ones): one run to warm
+profiles full-size paths instead (default: the three 2-D ones; the six
+example paths by name too): one run to warm
 up, then one under ``torch.profiler`` with CPU and CUDA activity, a window
 per entry point (``setup_problem``, ``build_preconditioner``, ``solve``),
 each printed with its wall seconds, device-busy seconds (the union of the
 card's kernel and copy intervals), idle share 1 - busy / wall and the
 device ops that took the most time.
+
+    python3 chip_smoke.py --witness
+
+runs ``elast3d_f64``'s command line and ``unstr_f64`` at full size on the
+card and on the host's CPU (f64), each printing its iterations, where the
+Givens estimate met the target and its residuals: the CPU witnesses of two
+counts that the JAX package has no run of at full size.
 
     python3 chip_smoke.py --plans
 
@@ -176,6 +213,7 @@ by a write pass (as in phase 6) and by a read pass.
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -322,6 +360,120 @@ NEWTON_SMALL = [("newton_q1_dd", 16, (2, 2), [], True),
                 ("config5_f64", 64, 16, [], False)]
 LSHAPE_CELLS = 22  # coarse L-shape: 22 x 22 cells, the 11 x 11 quadrant removed
 
+# the example drivers through the user's command line, examples/cli.main,
+# with the shipped inis and scripted coefficient files
+EXAMPLES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "ddm_tpu_torch", "examples")
+POISSON_INI = os.path.join(EXAMPLES, "configs", "poisson.ini")
+ELAST_INI = os.path.join(EXAMPLES, "configs", "linearelasticity.ini")
+COEFF = {name: os.path.join(EXAMPLES, "coefficients", f"{name}_coefficient.py")
+         for name in ("poisson", "elasticity",
+                      "symmetric_convection_diffusion")}
+DD_ARGS = ["-schwarz.subdomain_solver.precision", "dd",
+           "-coarse_solver.precision", "dd"]
+F32_ARGS = ["-schwarz.subdomain_solver.precision", "f32"]
+# The dd islands paths under poisson.ini run flexible GMRES: with the dd
+# precisions, left-preconditioned GMRES(100) does not reach the ini's 1e-10
+# at scale in the JAX package (CPU, x64: 10 iterations at 32^2/16, 24 at
+# 64^2/16, and at 128^2/64 not within 1000, its estimate stalled at
+# 2.2e-10), while flexible GMRES takes 7 at all three sizes, as its f64 run
+FGMRES_ARGS = ["-solver.type", "restartedflexiblegmressolver"]
+# cli consumes the first -problem; the second reaches the Poisson example
+# as its problem key
+SIMPLE_ARGS = ["-problem", "simple", "-solver.reduction", "1e-8",
+               "-visualise", "false"]
+
+
+def poisson_ini_argv(size, n_sub, *args):
+    """cli's Poisson example under the shipped poisson.ini (islands,
+    multiplicative restricted Schwarz + GenEO nev 8, GMRES(100) to 1e-10),
+    ``size``^2 cells, ``n_sub`` RCB subdomains, then ``args``."""
+    return ["-problem", "poisson", "-ini_file", POISSON_INI, "-gridsize",
+            str(size), "-subdomains", str(n_sub)] + list(args)
+
+
+def elast3d_argv(cells, slabs, *args):
+    """cli's elasticity example under the shipped linearelasticity.ini
+    (overlap 2, GMRES(50) to 1e-6, GenEO nev 6, LU) on the bar
+    [0,10]x[0,1]x[0,1.5] with ``cells``, ``slabs`` subdomains along x, the
+    scripted steel-rubber coefficients, then ``args``."""
+    return (["-problem", "elasticity", "-ini_file", ELAST_INI]
+            + [a for axis, c in zip("xyz", cells)
+               for a in (f"-cells_{axis}", str(c))]
+            + ["-subdomains_x", str(slabs), "-coefficient_file",
+               COEFF["elasticity"]] + list(args))
+
+
+# phase 4: (label, command line, how far apart the card's and the CPU's
+# iteration counts may lie); each runs on the card and on the CPU.  f32:
+# the f32 sums of the card and of the CPU run in different orders, so
+# their counts may differ by one (the solutions are still held to
+# SOLUTION_TOL)
+CLI_SMALL = [
+    ("poisson.ini 32^2/16 scripted f64",
+     poisson_ini_argv(32, 16, "-coefficient_file", COEFF["poisson"],
+                      "-visualise", "false"), 0),
+    ("poisson.ini 32^2/16 scripted dd",
+     poisson_ini_argv(32, 16, "-coefficient_file", COEFF["poisson"],
+                      "-visualise", "false", *DD_ARGS, *FGMRES_ARGS), 0),
+    # RCB cuts the square into the (2, 2) blocks of
+    # tests/test_misc.py:test_modify_subdomain_matrix_converges
+    ("modify_subdomain_matrix simple 32^2/4",
+     ["-problem", "poisson", "-gridsize", "32", "-subdomains", "4",
+      "-modify_subdomain_matrix", "true", "-visualise", "false"], 0),
+    ("poisson.ini simple 32^2/16 f32",
+     poisson_ini_argv(32, 16, *SIMPLE_ARGS, *F32_ARGS), 1),
+    ("elasticity 8x2x3 / 2 slabs scripted", elast3d_argv((8, 2, 3), 2), 0),
+    ("dg 16^2/4 symmetric scripted",
+     ["-problem", "dg", "-gridsize", "16", "-subdomains", "4",
+      "-coefficient_file", COEFF["symmetric_convection_diffusion"]], 0),
+]
+# phase 5: the full-size example paths, in order (each dd or f32 path after
+# the f64 path it is held to)
+CLI_PATHS = {
+    "poisson_ini_f64": lambda: poisson_ini_argv(
+        384, 256, "-vtk_filename", os.path.join(tmp_dir(), "poisson_ini.vtu")),
+    "poisson_ini_dd": lambda: poisson_ini_argv(
+        384, 256, "-coefficient_file", COEFF["poisson"], *DD_ARGS,
+        *FGMRES_ARGS, "-visualise", "false"),
+    "poisson_simple_f64": lambda: poisson_ini_argv(384, 256, *SIMPLE_ARGS),
+    "poisson_simple_f32": lambda: poisson_ini_argv(384, 256, *SIMPLE_ARGS,
+                                                   *F32_ARGS),
+    "elast3d_f64": lambda: elast3d_argv((80, 8, 12), 40),
+    "elast3d_dd": lambda: elast3d_argv((80, 8, 12), 40, *DD_ARGS),
+}
+# Limits of the example paths, from the JAX package's examples on the CPU
+# with x64 (PERF.md section 2).  poisson.ini (islands, 1e-10): 9, 8, 8, 8
+# iterations at 32^2/16, 64^2/16, 96^2/36, 128^2/64, so at most 9 + 2; its
+# true relative residual over the preconditioned reduction it stopped at
+# was 2.23, 0.18, 1.23, 0.34 there, so the true residual must lie within
+# 2.24 x the ini's 1e-10.  simple at 1e-8: 6 iterations at all four sizes,
+# so at most 6 + 2; its ratio grows as gridsize^2 (left preconditioning:
+# 55.7, 207.5, 462.5, 948.8, i.e. 0.0544, 0.0507, 0.0502, 0.0579 x
+# gridsize^2), so the true residual must lie within 0.058 x 384^2 x 1e-8.
+# The bar under linearelasticity.ini (GMRES(50) to 1e-6): the JAX package
+# takes 20 iterations at 80x4x6 / 40 slabs and 19 at 80x6x9 / 40 (there no
+# quadrature point falls inside the steel bars), 22 at 40x8x12 / 20 and 32
+# at 60x8x12 / 30 (6 and 9 slabs cut the steel; 11.7 GB resident on the
+# CPU at 30 slabs), and the port the same counts on the CPU.  The full
+# size, 12 slabs cutting steel, has no run of the JAX package; there the
+# port takes 45 on the host's CPU (triangular LU factors) and on the card
+# (explicit inverses) alike (--witness), so the bar is held to 45 + 2.
+# Left-preconditioned GMRES leaves the elasticity system's true residual
+# far above its target (the JAX package: 6.66e-2 at 16x4x6 / 4 slabs,
+# 2.90e-2 at 80x4x6 / 40, 8.11e-2 at 80x6x9 / 40, rising with the
+# cross-section), so the bar is held instead to the residual GMRES
+# controls: the preconditioned one, recomputed from the solution, within
+# the ini's 1e-6 (on the CPU the port's recomputed value equals the
+# solver's estimate to 6 digits at 16x4x6 / 4 and 40x4x6 / 20); its true
+# residual is printed.  Each dd or f32 path: its f64 path's count in this
+# run + 2 (set when that path has run), and the f64 path's residual limit.
+MAX_ITERS.update({"poisson_ini_f64": 9 + 2, "poisson_simple_f64": 6 + 2,
+                  "elast3d_f64": 45 + 2})
+CLI_TRUE_RES_MAX = {"poisson_ini": 2.24 * 1e-10,
+                    "poisson_simple": 0.058 * 384**2 * 1e-8}
+ELAST3D_PREC_RES_MAX = 1e-6  # linearelasticity.ini's solver.reduction
+
 
 def fail(msg):
     raise RuntimeError(msg)
@@ -376,19 +528,25 @@ def write_lshape_msh(path, cells=LSHAPE_CELLS):
     return len(tris)
 
 
-_MESH_DIR = []
+_TMP_DIR = []
+
+
+def tmp_dir():
+    """A temporary directory, made on first use and removed when the
+    process ends (the L-shape mesh file, the example's VTK output)."""
+    if not _TMP_DIR:
+        _TMP_DIR.append(tempfile.TemporaryDirectory(prefix="chip_smoke_"))
+    return _TMP_DIR[0].name
 
 
 def lshape_file():
-    """The L-shape mesh file, written on first use into a temporary
-    directory that is removed when the process ends."""
-    if not _MESH_DIR:
-        _MESH_DIR.append(tempfile.TemporaryDirectory(prefix="chip_smoke_"))
-        path = os.path.join(_MESH_DIR[0].name, "lshape.msh")
+    """The L-shape mesh file, written on first use."""
+    path = os.path.join(tmp_dir(), "lshape.msh")
+    if not os.path.exists(path):
         n = write_lshape_msh(path)
         print(f"L-shape mesh: {n} triangles written to a gmsh v2.2 file",
               flush=True)
-    return os.path.join(_MESH_DIR[0].name, "lshape.msh")
+    return path
 
 
 def path_ptree(api, path, size, reduction=1e-8):
@@ -634,6 +792,146 @@ def check_newton(path, run, r, dd):
     if not (r["shapes"] == want and all(want.values())):
         fail(f"{path} did not run through the dd_matvec kernel as expected: "
              f"{r['shapes']} != {want}")
+
+
+def run_cli(argv, device):
+    """One run of ``examples/cli.main`` with ``argv`` on ``device``, with
+    the kernel's launch counts zeroed just before and read just after;
+    the example's timing table goes to stderr.  Returns a dict of the run's
+    objects and counts, as run_path does."""
+    from ddm_tpu_torch import api
+    from ddm_tpu_torch.examples import cli
+    from ddm_tpu_torch.kernels import ddmatvec
+    from ddm_tpu_torch.obs.logger import Logger
+
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    ddmatvec.dd_matvec_cuda.shapes.clear()
+    t0 = time.perf_counter()
+    p, res = cli.main(list(argv), device)
+    u = api.solution(p, res)
+    if cuda:
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    shapes = dict(ddmatvec.dd_matvec_cuda.shapes)
+    M = p.prec  # the preconditioner the example built
+    precs = getattr(M, "precs", (M,))
+    log = Logger.get()
+    peak = max(log.peak_bytes, torch.cuda.max_memory_allocated(device)) if cuda else 0
+    r = p.rhs - p.A.mv(res.x)
+    out = dict(
+        p=p, M=M, precs=precs, res=res, u=u, secs=secs,
+        launches=sum(shapes.values()), shapes=shapes,
+        fine_applies=precs[0].applies,
+        coarse_applies=precs[1].applies if len(precs) > 1 else 0,
+        events={k: v.total for k, v in log.events.items()},
+        peaks={k: v.peak_bytes / 2**30 for k, v in log.events.items()},
+        peak_gib=peak / 2**30,
+        true_res=float(torch.linalg.norm(r) / torch.linalg.norm(p.rhs)),
+        prec_res=float(torch.linalg.norm(M.apply(r))
+                       / torch.linalg.norm(M.apply(p.rhs))),
+    )
+    return out
+
+
+def cli_dd_launches(argv, r):
+    """dd_matvec launches by shape that a run of ``argv`` on the card must
+    make: 3 per dd apply at the fine and at the coarse shape (none on the
+    CPU, where the wrapper runs the kernel's plain version)."""
+    p, precs = r["p"], r["precs"]
+    want = {}
+    if p.device.type != "cuda":
+        return want
+    if "-schwarz.subdomain_solver.precision" in argv and argv[
+            argv.index("-schwarz.subdomain_solver.precision") + 1] == "dd":
+        want[(p.topo.n_sub, p.topo.n_pad, p.topo.n_pad)] = 3 * r["fine_applies"]
+    if "-coarse_solver.precision" in argv and r["coarse_applies"]:
+        V = precs[1].V
+        n_c = V.shape[0] * V.shape[1]
+        want[(1, n_c, n_c)] = 3 * r["coarse_applies"]
+    return want
+
+
+DRIVER = [(("Driver", "Setup problem"), "setup problem"),
+          (("Driver", "Setup preconditioner"), "setup preconditioner"),
+          (("Driver", "Linear solve"), "linear solve"),
+          (("Driver", "Visualisation"), "visualisation"),
+          (("Total", "total time"), "driver total")]
+
+
+def check_cli_path(path, run, r, argv):
+    """Print one full-size example run's driver and phase split, peaks and
+    counts; raise unless it converged within its limits and ran the kernel
+    (dd) or the f32 inverse (f32) where it must."""
+    from ddm_tpu_torch.solvers.direct import SparseRefinedInverse
+
+    p, res, ev = r["p"], r["res"], r["events"]
+    kind = path.rsplit("_", 1)[0]
+    print(f"{path} ({run}): driver " + ", ".join(
+        f"{label} {ev[key]:.3f} s" for key, label in DRIVER if key in ev)
+        + "; " + ", ".join(f"{k} {v:.3f} s"
+                           for k, v in phase_split(ev).items())
+        + f", total {r['secs']:.3f} s, peak mem {r['peak_gib']:.2f} GiB",
+        flush=True)
+    setup_peak = max(v for (fam, _), v in r["peaks"].items() if fam == "Setup")
+    print(f"{path} ({run}): peak GiB by phase: setup_problem "
+          f"{setup_peak:.2f}, " + ", ".join(
+              f"{label} {r['peaks'][key]:.2f}" for key, label in PHASES
+              if key in r["peaks"]), flush=True)
+    print(f"{path} ({run}): n_dofs {p.disc.n_dofs}, n_sub {p.topo.n_sub}, "
+          f"n_pad {p.topo.n_pad}, iterations {res.iterations}, converged "
+          f"{res.converged}, true rel residual {r['true_res']:.3e}, "
+          f"recomputed preconditioned reduction {r['prec_res']:.3e}, "
+          f"dd_matvec launches {r['launches']} by shape {r['shapes']}, "
+          f"applies {r['fine_applies']} fine + {r['coarse_applies']} coarse",
+          flush=True)
+    if kind == "elast3d":
+        within = r["prec_res"] <= ELAST3D_PREC_RES_MAX
+    else:
+        within = r["true_res"] <= CLI_TRUE_RES_MAX[kind]
+    if not (res.converged and within and res.iterations <= MAX_ITERS[path]
+            and r["u"].shape == (p.disc.n_dofs,)
+            and bool(torch.isfinite(r["u"]).all())):
+        fail(f"{path} did not converge as required")
+    want = cli_dd_launches(argv, r)
+    if not (r["shapes"] == want and all(want.values())):
+        fail(f"{path} did not run through the dd_matvec kernel as expected: "
+             f"{r['shapes']} != {want}")
+    factors = r["precs"][0].factors
+    if path.endswith("f32") != isinstance(factors, SparseRefinedInverse) or (
+            path.endswith("f32") and not (factors.inv32.dtype == torch.float32
+                                          and factors.inv32.device == p.device)):
+        fail(f"{path}: fine level {type(factors).__name__}, expected the f32 "
+             f"inverse exactly on the f32 path")
+
+
+def profile_cli(path):
+    """--profile for an example path: one run to warm up, then one in
+    which the example's calls of ``setup_problem``, ``build_preconditioner``
+    and ``solve`` each run under their own profiler window."""
+    import importlib
+
+    dev = torch.device("cuda", 0)
+    argv = CLI_PATHS[path]()
+    run_cli(argv, dev)
+    name = "linearelasticity" if path.startswith("elast3d") else "poisson"
+    driver = importlib.import_module(f"ddm_tpu_torch.examples.{name}")
+    saved = {}
+    for fn in ("setup_problem", "build_preconditioner", "solve"):
+        saved[fn] = orig = getattr(driver, fn)
+        setattr(driver, fn, lambda *a, _f=orig, _n=fn, **kw: profiled(
+            _n, lambda: _f(*a, **kw)))
+    print(f"{path} (warm, profiled):", flush=True)
+    try:
+        r = run_cli(argv, dev)
+    finally:
+        for fn, orig in saved.items():
+            setattr(driver, fn, orig)
+    print(f"  iterations {r['res'].iterations}, converged "
+          f"{r['res'].converged}", flush=True)
 
 
 PHASES = [(("Schwarz", "extract"), "extract"),
@@ -914,6 +1212,9 @@ def profile_paths(paths):
     print(f"device: {torch.cuda.get_device_name(0)} | torch {torch.__version__}",
           flush=True)
     for path in paths or ["geneo_dd", "ring_f64", "ring_dd"]:
+        if path in CLI_PATHS:
+            profile_cli(path)
+            continue
         size, parts = FULL[PATHS[path][0]]
         p = path_problem(api, path, size, parts, dev)
         res = api.solve(p, api.build_preconditioner(p))
@@ -1021,6 +1322,104 @@ def sweep_plans():
             ms_r = time_ms(y.zero_, reps=50, flush=read_flush)
             print(f"launch floor: one-block kernel (zero_ of y) {ms:.4f} ms "
                   f"write-flushed, {ms_r:.4f} ms read-flushed", flush=True)
+
+
+def witness():
+    """--witness: two full-size f64 counts that have no run of the JAX
+    package at their size, each on the card and on the host's CPU (the
+    port's triangular factors there, explicit inverses on the card):
+    ``elast3d_f64``'s command line through ``examples/cli.main``, and
+    ``unstr_f64`` through the entry points."""
+    print(f"device: {torch.cuda.get_device_name(0)} | torch {torch.__version__}",
+          flush=True)
+    for dev in (torch.device("cuda", 0), torch.device("cpu")):
+        r = run_cli(CLI_PATHS["elast3d_f64"](), dev)
+        res = r["res"]
+        print(f"witness elast3d_f64 on {dev.type}: iterations "
+              f"{res.iterations}, estimate hit {res.estimate_hit}, converged "
+              f"{res.converged}, recomputed preconditioned reduction "
+              f"{r['prec_res']:.4e}, true rel residual {r['true_res']:.4e}, "
+              f"{r['secs']:.1f} s", flush=True)
+        del r, res
+        size, parts = FULL["unstr"]
+        r = run_path("unstr_f64", size, parts, dev)
+        res = r["res"]
+        print(f"witness unstr_f64 on {dev.type}: iterations {res.iterations}, "
+              f"estimate hit {res.estimate_hit}, converged {res.converged}, "
+              f"defect {res.defect:.4e} against the target "
+              f"{res.defect0 * 1e-8:.4e}, true rel residual "
+              f"{r['true_res']:.4e}, {r['secs']:.1f} s", flush=True)
+        del r, res
+
+
+def check_cli_small(dev, cpu):
+    """Phase 4's example checks: each of CLI_SMALL on the card against the
+    CPU."""
+    for label, argv, slack in CLI_SMALL:
+        g = run_cli(argv, dev)
+        c = run_cli(argv, cpu)
+        e_small = rel_err(g["u"].cpu(), c["u"])
+        want = cli_dd_launches(argv, g)
+        f32 = "f32" in argv
+        print(f"small {label} (n_pad {g['p'].topo.n_pad}): card "
+              f"{g['res'].iterations} its (true rel residual "
+              f"{g['true_res']:.3e}), cpu {c['res'].iterations} its, solution "
+              f"rel diff {e_small:.3e}, fine level "
+              f"{type(g['precs'][0].factors).__name__}, launches "
+              f"{g['launches']} by shape {g['shapes']}", flush=True)
+        if not (g["res"].converged and c["res"].converged
+                and abs(g["res"].iterations - c["res"].iterations) <= slack
+                and e_small <= SOLUTION_TOL and g["shapes"] == want
+                and all(want.values())
+                and (type(g["precs"][0].factors).__name__
+                     == "SparseRefinedInverse") == f32):
+            fail(f"small {label} on the card disagrees with the CPU")
+        del g, c
+
+
+def run_cli_paths(dev, gen, flush_buf, launches):
+    """Phase 5's example paths, cold then warm, each checked; the kernel
+    timed at the dd paths' shapes.  Records each path's launches in
+    ``launches``; returns the kernel entries."""
+    from ddm_tpu_torch.kernels import ddmatvec
+
+    entries = []
+    for path, make_argv in CLI_PATHS.items():
+        for run in ("cold", "warm"):
+            r = None
+            argv = make_argv()
+            r = run_cli(argv, dev)
+            check_cli_path(path, run, r, argv)
+        if "-vtk_filename" in argv:
+            vtu = argv[argv.index("-vtk_filename") + 1]
+            with open(vtu) as f:
+                names = sorted(set(re.findall(r'Name="([^"]+)"', f.read())))
+            print(f"{path}: VTK file {os.path.getsize(vtu)} bytes, fields "
+                  f"{names}", flush=True)
+            os.remove(vtu)
+        launches[path] = r["launches"]
+        if path.endswith("_f64"):
+            for other in ("_dd", "_f32"):
+                MAX_ITERS[path.replace("_f64", other)] = r["res"].iterations + 2
+        if "_dd" in path:
+            entries += time_kernel(ddmatvec, path, r["precs"], r["shapes"],
+                                   flush_buf, gen)
+        r = None
+    return entries
+
+
+def run_solver_bench(dev):
+    """The batched direct-solver benchmark at its defaults; raise if a
+    factorization's residual is over its limit."""
+    from ddm_tpu_torch.examples import solver_bench
+
+    for row in solver_bench.main([], dev)[:-1]:
+        # f64: the blocks' cond(A) ~ 3 leaves rounding-level residuals; the
+        # f32 inverse keeps f32's rounding
+        limit = 1e-3 if row["name"].endswith("f32") else 1e-8
+        if not row["resid"] <= limit:
+            fail(f"solver_bench {row['name']}: residual {row['resid']:.2e} "
+                 f"over {limit:g}")
 
 
 def main():
@@ -1139,6 +1538,9 @@ def main():
             fail(f"small Newton {label} on the card disagrees with the CPU")
         del g, c
 
+    # the example drivers through cli.main: the card against the CPU
+    check_cli_small(dev, cpu)
+
     # -- 5. main paths at full size, cold then warm; 6. their kernel shapes --
     flush_buf = torch.empty(2 * 50 * 2**20, dtype=torch.uint8, device=dev)
     launches, entries, gevp = {}, [], {}
@@ -1246,6 +1648,10 @@ def main():
                                    levels=("coarse",))
     r = None
 
+    # the example paths through cli.main, then the direct-solver benchmark
+    entries += run_cli_paths(dev, gen, flush_buf, launches)
+    run_solver_bench(dev)
+
     # top-level numbers: the ring_dd path at its fine shape (the first
     # entry); every path's shapes stand in "shapes", each path's total over
     # its shapes in launches_by_path
@@ -1274,5 +1680,7 @@ if __name__ == "__main__":
         profile_paths(sys.argv[2:])
     elif sys.argv[1:2] == ["--plans"]:
         sweep_plans()
+    elif sys.argv[1:2] == ["--witness"]:
+        witness()
     else:
         main()

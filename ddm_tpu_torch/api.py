@@ -59,6 +59,9 @@ class DDMProblem:
     device: torch.device
     elem_part: np.ndarray | None = None
     scale: torch.Tensor | None = None
+    # the preconditioner an example driver built and solved with (its
+    # applies and factors); None for a problem built outside the drivers
+    prec: object | None = None
 
 
 def make_grid(ptree: ParamTree, dim: int = 2):

@@ -164,6 +164,19 @@ class EllPattern:
             vals=flat.reshape(self.n, self.m),
         )
 
+    def from_scipy_vals(self, sp_csr, device) -> SparseELL:
+        """A SparseELL on ``device`` carrying the values of a scipy matrix
+        with this pattern (host path: Matrix Market input, tests)."""
+        import scipy.sparse as sps
+
+        a = sps.csr_matrix(sp_csr)
+        vals = np.zeros((self.n * self.m,))
+        vals[self.slot_csr] = np.asarray(a[self.rows_csr, self.cols_csr]).ravel()
+        return SparseELL(
+            cols=torch.as_tensor(self.cols, device=device),
+            vals=torch.as_tensor(vals.reshape(self.n, self.m), device=device),
+        )
+
     def to_scipy(self, ell: SparseELL):
         import scipy.sparse as sps
 

@@ -23,7 +23,7 @@ from ..core.sparse import jacobi_equilibrate
 from ..fem import problems as pm
 from ..fem.dg import DGDiscretization
 from ..fem.grids import structured_grid
-from ..obs.logger import Logger, scoped
+from ..obs.logger import Logger, scoped, setup_loggers
 
 
 def dg_ptree(argv=()) -> ParamTree:
@@ -54,17 +54,26 @@ def dg_ptree(argv=()) -> ParamTree:
 def setup(ptree: ParamTree, device=None,
           parts: tuple[int, int] | None = None) -> DDMProblem:
     """The DG problem on ``device`` (default: the CUDA card): grid,
-    discretization, system (Jacobi-equilibrated if ``equilibrate``, off by
-    default as in the reference example), topology (``parts`` blocks, else
-    ``subdomains`` by recursive coordinate bisection) and POU."""
+    discretization of :func:`~ddm_tpu_torch.fem.problems.dg_heterogeneous`
+    or of the script ``coefficient_file`` (``fem/scripted.py``), system
+    (Jacobi-equilibrated if ``equilibrate``, off by default as in the
+    reference example), topology (``parts`` blocks, else ``subdomains`` by
+    recursive coordinate bisection) and POU."""
     device = default_device() if device is None else torch.device(device)
-    if ptree.get("coefficient_file", ""):
-        raise NotImplementedError("scripted coefficient files are not ported")
     gs = ptree.get("gridsize", 32)
     with scoped("Setup", "grid (host)"):
         grid = structured_grid((gs, gs))
+    coeff_file = ptree.get("coefficient_file", "")
+    if coeff_file:
+        # scripted coefficients (reference:
+        # convection_diffusion_coefficient.lua through LuaProblem)
+        from ..fem.scripted import load_problem
+
+        problem = load_problem(coeff_file)
+    else:
+        problem = pm.dg_heterogeneous()
     with scoped("Setup", "discretize (host pattern)", device):
-        disc = DGDiscretization(grid, pm.dg_heterogeneous(), device)
+        disc = DGDiscretization(grid, problem, device)
     with scoped("Setup", "assemble + constrain", device):
         A, b, g = disc.constrained_system()
     scale = None
@@ -87,13 +96,15 @@ def setup(ptree: ParamTree, device=None,
 
 def main(argv=None, device=None):
     """Set up, build the preconditioner and solve; prints the iteration
-    count and the timing table to stderr.  Returns (problem, result)."""
-    ptree = dg_ptree(sys.argv[1:] if argv is None else argv)
+    count and the timing table to stderr.  Returns (problem, result); the
+    problem's ``prec`` is the preconditioner."""
+    ptree = dg_ptree(
+        setup_loggers(sys.argv[1:] if argv is None else list(argv)))
     Logger.reset()
     with scoped("Driver", "Setup problem"):
         p = setup(ptree, device)
     with scoped("Driver", "Setup preconditioner", p.device):
-        prec = build_preconditioner(p)
+        prec = p.prec = build_preconditioner(p)
     with scoped("Driver", "Linear solve", p.device):
         res = solve(p, prec)
     print(f"DG solve: {res.iterations} iterations, converged {res.converged}",

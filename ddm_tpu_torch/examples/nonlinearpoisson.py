@@ -25,7 +25,7 @@ from ..api import default_device, default_ptree
 from ..config import ParamTree, apply_cli_overrides, read_ini_file
 from ..fem.grids import structured_grid
 from ..fem.nonlinear import NonlinearDiscretization, NonlinearProblem
-from ..obs.logger import Logger, scoped
+from ..obs.logger import Logger, scoped, setup_loggers
 from ..solvers.newton import NewtonResult
 from ..solvers.nonlinear_driver import TwoLevelNewtonSolver
 
@@ -72,7 +72,8 @@ def setup(ptree: ParamTree, device=None,
 def main(argv=None, device=None) -> tuple[TwoLevelNewtonSolver, NewtonResult]:
     """Set up and solve; prints the Newton and inner iteration counts and
     the timing table to stderr.  Returns (solver, result)."""
-    ptree = nonlinear_ptree(sys.argv[1:] if argv is None else argv)
+    ptree = nonlinear_ptree(
+        setup_loggers(sys.argv[1:] if argv is None else list(argv)))
     Logger.reset()
     with scoped("Driver", "Setup problem"):
         solver = setup(ptree, device)

@@ -1,7 +1,11 @@
-"""Event timing (observability layer), after ``ddm_tpu/obs/logger.py``.
+"""Logging and event timing (observability layer), after
+``ddm_tpu/obs/logger.py``.
 
-A ``warn`` message function (the JAX package's ``logger.warn``), and
-families -> events with start/end pairs, a nesting guard that rejects a
+The leveled ``logger`` (``trace`` ... ``critical``, ``{}``-formatted
+messages; level from the ``LOG_LEVEL`` environment variable or a
+``--log-level=<lvl>`` argument consumed by :func:`setup_loggers`,
+reference: dune/ddm/logger.hh:57-67, 557-580), a ``warn`` message function
+that always prints, and families -> events with start/end pairs, a nesting guard that rejects a
 double start, scoped timing and a total/mean/min/max report (reference:
 dune/ddm/logger.hh ``Logger`` / ``ScopedLog``).  CUDA work is asynchronous,
 so a scope given a CUDA device synchronizes it before it stops the clock:
@@ -13,11 +17,91 @@ since the last ``Logger.reset()``, in and between scopes.
 
 from __future__ import annotations
 
+import enum
+import os
 import sys
 import time
 from dataclasses import dataclass, field
 
 import torch
+
+
+class Level(enum.IntEnum):
+    trace = 0
+    debug = 1
+    info = 2
+    warn = 3
+    error = 4
+    critical = 5
+    off = 6
+
+
+_LEVEL_NAMES = {level.name: level for level in Level}
+
+
+class _Logger:
+    """Leveled messages to stderr; one process, so the reference's
+    ``*_all`` (every rank) variants are aliases."""
+
+    def __init__(self) -> None:
+        env = os.environ.get("LOG_LEVEL", "info").lower()
+        self.level: Level = _LEVEL_NAMES.get(env, Level.info)
+        self.stream = sys.stderr
+
+    def set_level(self, level: Level | str) -> None:
+        if isinstance(level, str):
+            level = _LEVEL_NAMES[level.lower()]
+        self.level = level
+
+    def get_level(self) -> Level:
+        return self.level
+
+    def _log(self, level: Level, fmt: str, *args) -> None:
+        if level < self.level:
+            return
+        msg = fmt.format(*args) if args else fmt
+        print(f"[{level.name}] {msg}", file=self.stream)
+
+    def trace(self, fmt, *a):
+        self._log(Level.trace, fmt, *a)
+
+    def debug(self, fmt, *a):
+        self._log(Level.debug, fmt, *a)
+
+    def info(self, fmt, *a):
+        self._log(Level.info, fmt, *a)
+
+    def warn(self, fmt, *a):
+        self._log(Level.warn, fmt, *a)
+
+    def error(self, fmt, *a):
+        self._log(Level.error, fmt, *a)
+
+    def critical(self, fmt, *a):
+        self._log(Level.critical, fmt, *a)
+
+    trace_all = trace
+    debug_all = debug
+    info_all = info
+    warn_all = warn
+    error_all = error
+
+
+logger = _Logger()
+
+
+def setup_loggers(argv: list[str] | None = None) -> list[str]:
+    """Consume ``--log-level=<lvl>`` from ``argv`` (sets ``logger``'s
+    level); returns the other arguments."""
+    if argv is None:
+        return []
+    rest = []
+    for a in argv:
+        if a.startswith("--log-level="):
+            logger.set_level(a.split("=", 1)[1])
+        else:
+            rest.append(a)
+    return rest
 
 
 @dataclass
@@ -104,7 +188,11 @@ class ScopedLog:
 
     def _fold_peak(self) -> int:
         """Fold the allocator's peak since its last reset into the
-        logger's running peak, restart the allocator's, return it."""
+        logger's running peak, restart the allocator's, return it (0
+        before the process's first CUDA work, when there is no allocator
+        to read)."""
+        if not torch.cuda.is_initialized():
+            return 0
         log = Logger.get()
         peak = torch.cuda.max_memory_allocated(self.device)
         log.peak_bytes = max(log.peak_bytes, peak)

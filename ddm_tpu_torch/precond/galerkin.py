@@ -212,7 +212,10 @@ def build_galerkin(
             del A_sub
         E = _mask_inactive(E, basis.active)
     with scoped("GalerkinPrec", "factor A0", device):
-        coarse = factor_batched(E[None], sub.get("type"))
+        # the lower triangle of E, not (E + E^T) / 2 as the JAX package:
+        # E is symmetric to 4e-16 and the two factors' applies lie equally
+        # near the JAX package's (ROADMAP queue 3)
+        coarse = factor_batched(E[None], sub.get("type"), symmetrize=False)
         if precision == "dd" and isinstance(coarse, BatchedInverse):
             coarse = pack_inverse(coarse.inv, "dd")
     refine = int(sub.get("refine", 2))

@@ -21,7 +21,8 @@ from ..config import ParamTree
 from ..core.indexmaps import DDMTopology, dual_scatter_map, extraction_map
 from ..core.sparse import SparseELL
 from ..obs.logger import scoped
-from ..solvers.direct import BatchedInverseDD, factor_batched
+from ..fem.subassembly import eliminate_dirichlet_dense
+from ..solvers.direct import BatchedInverseDD, SparseRefinedInverse, factor_batched
 from .extract import extract_subdomain_dense, gather_subdomain, scatter_add_subdomain
 
 
@@ -30,7 +31,9 @@ class SchwarzPreconditioner:
     sub2glob: torch.Tensor  # (n_sub, n_pad) int64
     valid: torch.Tensor  # (n_sub, n_pad) bool
     pou: torch.Tensor  # (n_sub, n_pad) f64; all ones for standard AS
-    factors: object  # BatchedCholesky | BatchedInverse | BatchedInverseDD
+    # BatchedCholesky | BatchedLU | BatchedInverse | BatchedInverseDD |
+    # SparseRefinedInverse
+    factors: object
     dualT: torch.Tensor  # (K, n) int64 gather-dual of the scatter
     applies: int = 0  # number of apply() calls so far
 
@@ -54,11 +57,15 @@ def build_schwarz(
 
     Config keys (subtree ``schwarz``): ``type`` = standard|restricted
     (default restricted); ``subdomain_solver.type`` (mandatory; cholesky /
-    cholmod, or lu / umfpack / superlu); ``subdomain_solver.precision`` = f64|dd (dd: double-single
-    inverse applied through kernels/ddmatvec.py, with
-    ``subdomain_solver.refine_steps`` exact defect corrections, default 2).
-    The TPU construction knobs ``construction`` and ``newton_rtol`` are
-    accepted and ignored: the inverse is always built exactly in f64."""
+    cholmod, or lu / umfpack / superlu); ``subdomain_solver.precision`` =
+    f64|dd|f32, where dd (a double-single inverse applied through
+    kernels/ddmatvec.py) and f32 (an f32 inverse, ``SparseRefinedInverse``)
+    both take ``subdomain_solver.refine_steps`` exact sparse f64 defect
+    corrections per apply, default 2.  ``modify_subdomain_matrix`` (top
+    level) eliminates each subdomain's boundary dofs from its matrix before
+    factorising (reference: pdelab_schwarz.hh:163-164).  The TPU
+    construction knobs ``construction`` and ``newton_rtol`` are accepted and
+    ignored: the inverse is always built exactly in f64."""
     device = ell.vals.device
     sub = ptree.sub(subtree_name)
     type_string = sub.get("type", "restricted")
@@ -72,10 +79,8 @@ def build_schwarz(
         )
     solver_type = solver_sub.get("type")
     precision = solver_sub.get("precision", "f64")
-    if precision not in ("f64", "dd"):
-        raise ValueError(f"subdomain precision '{precision}' is not ported")
-    if ptree.get("modify_subdomain_matrix", False):
-        raise NotImplementedError("modify_subdomain_matrix is not ported")
+    if precision not in ("f64", "dd", "f32"):
+        raise ValueError(f"Unknown subdomain precision '{precision}'")
 
     def t(a):
         return torch.as_tensor(a, device=device)
@@ -85,23 +90,31 @@ def build_schwarz(
     valid = t(topo.valid)
     with scoped("Schwarz", "extract", device):
         A_sub = extract_subdomain_dense(ell, sub2glob, valid, local_cols)
+        if ptree.get("modify_subdomain_matrix", False):
+            eliminate_dirichlet_dense(A_sub, t(topo.boundary) & valid,
+                                      inplace=True)
     with scoped("Schwarz", "factorise", device):
-        if precision == "dd":
-            factors = factor_batched(A_sub, solver_type, mode="inverse",
-                                     store_dtype="dd")
-        else:
-            factors = factor_batched(A_sub, solver_type)
+        # the reduced-precision applies need the explicit inverse, on the
+        # CPU too (where "auto" keeps triangular factors)
+        factors = factor_batched(
+            A_sub, solver_type, mode="auto" if precision == "f64" else "inverse",
+            store_dtype={"dd": "dd", "f32": torch.float32}.get(precision))
         del A_sub
-    if precision == "dd":
+    if precision != "f64":
+        # each subdomain's sparse rows of A, for the exact defect corrections
         rows = torch.clamp(sub2glob, max=ell.n - 1)
         sub_vals, _ = ell.rows_dense_gather(rows)
         sub_vals = sub_vals * valid[:, :, None]
         sub_vals = torch.where(local_cols >= topo.n_pad, 0.0, sub_vals)
-        factors = BatchedInverseDD(
-            inv_hi=factors.inv_hi, inv_lo=factors.inv_lo,
-            sub_vals=sub_vals, sub_cols=local_cols,
-            steps=int(solver_sub.get("refine_steps", 2)),
-        )
+        steps = int(solver_sub.get("refine_steps", 2))
+        if precision == "dd":
+            factors = BatchedInverseDD(
+                inv_hi=factors.inv_hi, inv_lo=factors.inv_lo,
+                sub_vals=sub_vals, sub_cols=local_cols, steps=steps)
+        else:
+            factors = SparseRefinedInverse(
+                inv32=factors.inv, sub_vals=sub_vals, sub_cols=local_cols,
+                steps=steps)
 
     if type_string == "restricted":
         if pou is None:

@@ -7,9 +7,11 @@ matrices arrive as a padded dense batch (n_sub, p, p) whose padding
 diagonal is 1.  Factor once at setup, apply per Krylov iteration.
 
 Cholesky for SPD matrices and partial-pivoting LU for general ones.  Only
-the exact f64 constructions are ported: the TPU package's f32-seeded
-Newton inverse, blocked Cholesky / triangular inverse and batch caps were
-TPU workarounds; their config keys are accepted and ignored by the callers.
+the exact f64 constructions are ported (an explicit inverse is always
+formed in f64, then stored in f64, double-single or f32): the TPU
+package's f32-seeded Newton inverse, blocked Cholesky / triangular inverse
+and batch caps were TPU workarounds; their config keys are accepted and
+ignored by the callers.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from dataclasses import dataclass
 
 import torch
 
-from ..kernels.ddmatvec import dd_matvec
+from ..kernels.ddmatvec import dd_matvec, tf32_off
 
 _LU_NAMES = {"lu", "umfpack", "superlu", "strumpack"}
 _CHOL_NAMES = {"cholesky", "cholmod"}
@@ -64,12 +66,15 @@ class BatchedCholesky:
 class BatchedInverse:
     """Explicit subdomain inverses: apply = one batched matvec pass."""
 
-    inv: torch.Tensor  # (n_sub, p, p)
+    inv: torch.Tensor  # (n_sub, p, p) f64, or f32 (store_dtype)
 
     def solve(self, b: torch.Tensor) -> torch.Tensor:
-        if b.ndim == 2:
-            return (self.inv @ b[..., None])[..., 0]
-        return self.inv @ b
+        """b: (n_sub, p) or (n_sub, p, k), f64; an f32 inverse is applied
+        in full f32 (TF32 off) to b rounded to f32."""
+        bb = (b[..., None] if b.ndim == 2 else b).to(self.inv.dtype)
+        with tf32_off():
+            x = self.inv @ bb
+        return (x[..., 0] if b.ndim == 2 else x).to(b.dtype)
 
 
 def dd_split(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -98,30 +103,68 @@ class BatchedInverseDD:
     sub_cols: torch.Tensor | None = None  # (n_sub, p, m) int64, dummy == p
     steps: int = 0
 
-    def _amul(self, x: torch.Tensor) -> torch.Tensor:
-        """Exact f64 A_sub @ x via the sparse rows; x: (n_sub, p)."""
-        n_sub, p = x.shape
-        pad = torch.cat([x, x.new_zeros((n_sub, 1))], dim=1)
-        xs = torch.gather(pad, 1, self.sub_cols.reshape(n_sub, -1))
-        return (self.sub_vals * xs.reshape(self.sub_cols.shape)).sum(dim=2)
-
     def solve(self, b: torch.Tensor) -> torch.Tensor:
         x = dd_matvec(self.inv_hi, self.inv_lo, b)
         for _ in range(self.steps):
-            r = b - self._amul(x)
+            r = b - sparse_amul(self.sub_vals, self.sub_cols, x)
             x = x + dd_matvec(self.inv_hi, self.inv_lo, r)
         return x
 
 
+@dataclass
+class SparseRefinedInverse:
+    """f32 explicit subdomain inverses plus ``steps`` rounds of defect
+    correction with the exact sparse f64 subdomain residual
+
+        x <- x + X32 (b - A_sub x)
+
+    (``ddm_tpu/solvers/direct.py:SparseRefinedInverse``; reference: the
+    blockwise iterative refinement of
+    dune/ddm/eigensolvers/umfpack.hh:42-129).  The f32 product is a
+    batched matvec in full f32 (TF32 off, as the JAX package's einsum on
+    the CPU); several right-hand sides are refined column by column."""
+
+    inv32: torch.Tensor  # (n_sub, p, p) float32
+    sub_vals: torch.Tensor  # (n_sub, p, m) f64 sparse rows of A_sub
+    sub_cols: torch.Tensor  # (n_sub, p, m) int64 local cols, dummy == p
+    steps: int = 2
+
+    def solve(self, b: torch.Tensor) -> torch.Tensor:
+        if b.ndim == 3:
+            return torch.stack([self.solve(b[..., k])
+                                for k in range(b.shape[-1])], dim=-1)
+        fast = BatchedInverse(self.inv32).solve
+        x = fast(b)
+        for _ in range(self.steps):
+            r = b - sparse_amul(self.sub_vals, self.sub_cols, x)
+            x = x + fast(r)
+        return x
+
+
+def sparse_amul(sub_vals: torch.Tensor, sub_cols: torch.Tensor,
+                x: torch.Tensor) -> torch.Tensor:
+    """Exact f64 A_sub @ x from the subdomains' sparse rows (vals and
+    local cols (n_sub, p, m), dummy column p); x: (n_sub, p)."""
+    n_sub, p = x.shape
+    pad = torch.cat([x, x.new_zeros((n_sub, 1))], dim=1)
+    xs = torch.gather(pad, 1, sub_cols.reshape(n_sub, -1))
+    return (sub_vals * xs.reshape(sub_cols.shape)).sum(dim=2)
+
+
+_STORE_DTYPES = (None, "dd", torch.float32)
+
+
 def pack_inverse(inv: torch.Tensor, store_dtype=None):
     """Wrap an explicit inverse batch: None -> f64 BatchedInverse,
-    "dd" -> double-single BatchedInverseDD."""
+    "dd" -> double-single BatchedInverseDD, torch.float32 -> an f32
+    BatchedInverse."""
+    if store_dtype not in _STORE_DTYPES:
+        raise ValueError(f"store_dtype '{store_dtype}' is not ported")
     if store_dtype == "dd":
         hi, lo = dd_split(inv)
         return BatchedInverseDD(inv_hi=hi, inv_lo=lo)
-    if store_dtype is not None:
-        raise ValueError(f"store_dtype '{store_dtype}' is not ported")
-    return BatchedInverse(inv=inv)
+    return BatchedInverse(inv=inv if store_dtype is None
+                          else inv.to(store_dtype))
 
 
 SLAB_BYTES = 6 << 30  # device memory one slab's temporaries may take
@@ -159,6 +202,7 @@ def factor_batched(
     solver_type: str = "cholesky",
     mode: str = "auto",
     store_dtype=None,
+    symmetrize: bool = True,
 ):
     """Factor a batch of dense subdomain matrices (n_sub, p, p): SPD ones
     by Cholesky, general ones by LU, per ``solver_type``.
@@ -169,19 +213,25 @@ def factor_batched(
     per apply), "auto" takes factors for CPU
     tensors and inverses for CUDA tensors — on the card the apply is then a
     bandwidth-bound matvec instead of 2p dependent substitution steps.
-    store_dtype: None (f64) or "dd" (inverse mode only)."""
+    store_dtype: None (f64), "dd" or torch.float32 (inverse mode only).
+    symmetrize: Cholesky factors (A + A^T) / 2, as ``jnp.linalg.cholesky``
+    does in the JAX package (bit-equal to A when A is symmetric; a
+    nonsymmetric A, convection-diffusion under the default Cholesky
+    solver, is factored as the JAX package factors it); False reads A's
+    lower triangle, as the Galerkin coarse factor does (ROADMAP queue 3)."""
     st = resolve_solver_type(solver_type)
     if mode == "auto":
         mode = "factors" if A.device.type == "cpu" else "inverse"
     if mode not in ("factors", "inverse"):
         raise ValueError(f"unknown factorization mode '{mode}'")
-    if store_dtype not in (None, "dd"):
+    if store_dtype not in _STORE_DTYPES:
         raise ValueError(f"store_dtype '{store_dtype}' is not ported")
     if mode == "factors":
         if store_dtype is not None:
             raise ValueError("store_dtype needs mode='inverse'")
         if st == "cholesky":
-            return BatchedCholesky(chol=torch.linalg.cholesky(A))
+            return BatchedCholesky(chol=torch.linalg.cholesky(
+                (A + A.mT) * 0.5 if symmetrize else A))
         return BatchedLU(*_lu_factor(A))
 
     def inverse(a):
@@ -193,9 +243,12 @@ def factor_batched(
                                         eye.expand_as(a)).contiguous()
         else:
             linv = torch.linalg.solve_triangular(
-                torch.linalg.cholesky(a), eye.expand_as(a), upper=False)
+                torch.linalg.cholesky((a + a.mT) * 0.5 if symmetrize else a),
+                eye.expand_as(a), upper=False)
             inv = linv.mT @ linv
-        return dd_split(inv) if store_dtype == "dd" else (inv,)
+        if store_dtype == "dd":
+            return dd_split(inv)
+        return (inv if store_dtype is None else inv.to(store_dtype),)
 
     # slabs of subdomains: beside A and the stored inverse only one slab's
     # factor, triangular inverse and product (and the dd split's f64

@@ -10,6 +10,8 @@ to 1e-8 relative to max(|lambda|, shift) with equal kept counts; GMRES
 iterations equal, solutions within 1e-6.
 """
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -186,14 +188,19 @@ def test_dg_two_level_iterations_match_jax(dg_runs):
 
 def test_dg_example_main_runs_on_cpu():
     """The example's entry point with its ini defaults (16 RCB subdomains)
-    at 8^2 cells on the CPU; a scripted coefficient file is not ported."""
+    at 8^2 cells on the CPU; ``coefficient_file`` loads a scripted
+    problem in place of the built-in one."""
     from ddm_tpu_torch.examples.convectiondiffusiondg import dg_ptree, main, setup
 
     p, res = main(["-gridsize", "8"], device="cpu")
     assert res.converged and p.topo.n_sub == 16
     assert p.disc.n_dofs == 4 * 8 * 8
-    with pytest.raises(NotImplementedError):
-        setup(dg_ptree(["-coefficient_file", "c.lua"]), "cpu")
+    script = os.path.join(os.path.dirname(__file__), "..", "ddm_tpu_torch",
+                          "examples", "coefficients",
+                          "symmetric_convection_diffusion_coefficient.py")
+    ps = setup(dg_ptree(["-gridsize", "8", "-coefficient_file", script]),
+               "cpu")
+    assert ps.disc.problem.name == script and ps.disc.problem.symmetric
 
 
 def test_dg_ring_two_level_matches_jax(dg_runs):

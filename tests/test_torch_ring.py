@@ -300,7 +300,9 @@ def dd_coarse(state, ring_spaces):
     G = build_galerkin(p.A, p.topo, basis, _ptree(tapi))
     G_dd = build_galerkin(p.A, p.topo, basis, _ptree(tapi, "dd"))
     assert isinstance(G_dd.coarse, BatchedCholesky)
-    inv = factor_batched(G.E_mat[None], "cholesky", mode="inverse").inv
+    # the inverse the Galerkin builder forms on the card (lower triangle)
+    inv = factor_batched(G.E_mat[None], "cholesky", mode="inverse",
+                         symmetrize=False).inv
     G_dd = dataclasses.replace(G_dd, coarse=pack_inverse(inv, "dd"))
     assert isinstance(G_dd.coarse, BatchedInverseDD)
     d = np.random.default_rng(7).standard_normal(p.topo.n_glob)
@@ -335,6 +337,52 @@ def test_dd_coarse_apply_matches_jax(state, ring_spaces, dd_coarse):
                                  *jdirect.dd_split(jnp.asarray(dd_coarse["inv"]))))
     want = np.asarray(Gj.apply(jnp.asarray(dd_coarse["d"])))
     assert _relerr(dd_coarse["y_dd"], want) < 1e-10
+
+
+def test_coarse_factor_symmetrization_within_apply_noise(state, ring_spaces,
+                                                         dd_coarse):
+    """The Galerkin coarse factor reads E's lower triangle, where the JAX
+    package's ``jnp.linalg.cholesky`` factors (E + E^T) / 2.  E is
+    symmetric to the last bit and near-singular (cond ~5e7), so the
+    distance of the port's dd coarse apply from the JAX package's (same
+    inputs, as above) is rounding noise of order cond(E) x eps: for five
+    defects it stays under 2.5e-10 whether the inverse comes from the
+    lower triangle, from the symmetric part, or from the JAX package's own
+    Cholesky, and no inverse is nearer to the JAX package's for every
+    defect (pytest -s prints the table)."""
+    pj, E = state["pj"], dd_coarse["G"].E_mat
+    En = E.numpy()
+    assert np.abs(En - En.T).max() / np.abs(En).max() < 1e-15
+    eye = torch.eye(En.shape[0], dtype=torch.float64)
+    Lj = np.asarray(jnp.linalg.cholesky(jnp.asarray(En)))
+    Lij = np.linalg.solve(Lj, np.eye(En.shape[0]))
+    invs = {
+        "lower": factor_batched(E[None], "cholesky", mode="inverse",
+                                symmetrize=False).inv,
+        "symmetric": factor_batched(E[None], "cholesky", mode="inverse").inv,
+        "jax": torch.as_tensor(Lij.T @ Lij)[None],
+    }
+    assert torch.equal(invs["lower"], torch.as_tensor(dd_coarse["inv"]))
+    basis = jbasis.CoarseBasis(V=jnp.asarray(ring_spaces["port"]["V"]),
+                               active=jnp.asarray(ring_spaces["port"]["active"]))
+    Gj = jgalerkin.build_galerkin(pj.A, pj.topo, basis, _ptree(japi, "dd"))
+    errs = {}
+    for name, inv in invs.items():
+        G_dd = dataclasses.replace(dd_coarse["G_dd"],
+                                   coarse=pack_inverse(inv, "dd"))
+        Gi = dataclasses.replace(Gj, E_mat=jnp.asarray(En),
+                                 coarse=jdirect.BatchedInverseDD(
+                                     *jdirect.dd_split(jnp.asarray(inv.numpy()))))
+        for seed in (7, 1, 2, 3, 4):
+            d = np.random.default_rng(seed).standard_normal(pj.topo.n_glob)
+            errs[name, seed] = _relerr(G_dd.apply(torch.as_tensor(d)).numpy(),
+                                       np.asarray(Gi.apply(jnp.asarray(d))))
+    for name in invs:
+        print(name, " ".join(f"{errs[name, s]:.3e}" for s in (7, 1, 2, 3, 4)))
+    assert max(errs.values()) < 2.5e-10
+    for name in invs:
+        assert any(errs[name, s] > min(errs[o, s] for o in invs)
+                   for s in (7, 1, 2, 3, 4))
 
 
 @pytest.fixture(scope="module")
