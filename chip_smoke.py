@@ -180,7 +180,23 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    times), each with its launch plan, its share of the bound
    and, as a reference line over the same bytes, the f64 cuBLAS matvec of
    the f64 inverse hi + lo (``f64_library_ms``; it computes a different
-   function, so ``library_ms`` stays null).
+   function, so ``library_ms`` stays null);
+7. sharded — ``ring_dd`` at islands 384^2 / 256 on four ranks of one
+   process group, spawned by this script (``spawn`` start method, a
+   ``file://`` rendezvous, a 300 s collective timeout): NCCL with one rank
+   per card when the machine has four cards, else gloo with the four ranks
+   on the cards there are (one H100: all on card 0).  Each rank builds
+   through ``build_preconditioner(p, mesh=)`` and solves through
+   ``solve(p, mesh=)`` with its launch counts zeroed just before and read
+   just after, and prints its phase split, peak GiB and fine dd inverse;
+   then rank 0, while the others wait at a barrier, holds the kernel
+   against its plain version and times it at (64, 848, 848) and
+   (1, 2048, 2048) as in phase 6.  Every rank must take phase 5's
+   single-device ``ring_dd`` count, reach its true residual limit, hold a
+   fine factor batch of 64 and launch the kernel 3 times per apply at
+   both shapes; the sharded solution must lie within SOLUTION_TOL of the
+   single-device one, and the final iterates must be bit-identical on
+   every rank.  A failure on any rank ends the script non-zero.
 
 Then one JSON line of per-kernel results, the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}.
@@ -201,6 +217,25 @@ runs ``elast3d_f64``'s command line and ``unstr_f64`` at full size on the
 card and on the host's CPU (f64), each printing its iterations, where the
 Givens estimate met the target and its residuals: the CPU witnesses of two
 counts that the JAX package has no run of at full size.
+
+    python3 chip_smoke.py --sharded
+
+runs the kernel's build, ``ring_dd`` on card 0 as the reference, then
+phase 7 alone (with four cards: NCCL, one rank per card), and holds every
+stage of each rank's build (fine dd inverse, ring GEVP, extension, coarse
+basis, coarse matrix and inverse, one apply of each level, the final
+iterate) against the rows of two single-device builds: the reference and
+one whose chunked stages, coarse restriction and prolongation are cut
+into slabs of a rank's 64 subdomains.
+It prints, for each stage, how many subdomains are bit-equal and the
+largest difference.
+
+    python3 chip_smoke.py --setup-profile
+
+profiles ``setup_problem`` of islands 384^2 / 256 with the problem on the
+card under ``cProfile``, cold and warm: its wall seconds, the cumulative
+seconds of its host stages (``build_topology`` and the others of
+SETUP_PROFILE_FNS) and the functions with the most time of their own.
 
     python3 chip_smoke.py --plans
 
@@ -1408,6 +1443,371 @@ def run_cli_paths(dev, gen, flush_buf, launches):
     return entries
 
 
+SHARDED_RANKS = 4
+SHARDED_TIMEOUT_S = 300  # one collective; a rank that diverges ends the run
+
+
+def sharded_rank(rank, world, init_method, out_dir, device, size, parts,
+                 stages=False):
+    """One rank of phase 7: ``ring_dd`` at ``size``/``parts`` through
+    ``build_preconditioner(p, mesh=)`` and ``solve(p, mesh=)``, with the
+    kernel's launch counts zeroed just before and read just after; then,
+    on rank 0 while the others wait at a barrier, the kernel against its
+    plain version and timed at the rank's shapes (on the card).  Writes its
+    results to ``out_dir``, with ``stages`` its build's stages too
+    (:func:`ring_stages`)."""
+    import datetime
+    import hashlib
+
+    import torch.distributed as dist
+
+    from ddm_tpu_torch import api
+    from ddm_tpu_torch.coarse import ring
+    from ddm_tpu_torch.core import mesh as dmesh
+    from ddm_tpu_torch.kernels import ddmatvec
+    from ddm_tpu_torch.obs.logger import Logger
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    mesh = dmesh.init_ranks(
+        rank, world, init_method, device=device,
+        timeout=datetime.timedelta(seconds=SHARDED_TIMEOUT_S))
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+    if stages:
+        record_ring_stages()
+    try:
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        Logger.reset()
+        for k in ring.ROUTES:
+            ring.ROUTES[k] = 0
+        ddmatvec.dd_matvec_cuda.shapes.clear()
+        t0 = time.perf_counter()
+        p = path_problem(api, "ring_dd", size, parts, dev)
+        M = api.build_preconditioner(p, mesh=mesh)
+        res = api.solve(p, M, mesh=mesh)
+        u = api.solution(p, res)
+        if cuda:
+            torch.cuda.synchronize(dev)
+        secs = time.perf_counter() - t0
+        shapes = dict(ddmatvec.dd_matvec_cuda.shapes)
+        log = Logger.get()
+        fine, coarse = M.precs
+        xs = mesh.all_gather(res.x[None])  # every rank's final iterate
+        out = dict(
+            rank=rank, backend=mesh.backend, device=str(dev), secs=secs,
+            iterations=res.iterations, converged=res.converged,
+            true_res=float(torch.linalg.norm(p.A.mv(res.x) - p.rhs)
+                           / torch.linalg.norm(p.rhs)),
+            x_sha=hashlib.sha256(res.x.cpu().numpy().tobytes()).hexdigest(),
+            same_as_all=all(torch.equal(xs[0], x) for x in xs),
+            shapes=shapes, routes=dict(ring.ROUTES),
+            split=phase_split({k: v.total for k, v in log.events.items()}),
+            # the scopes fold the allocator's peak into the logger's and
+            # reset it (obs/logger.py): the peak is the larger of the two
+            peak_gib=max(log.peak_bytes, torch.cuda.max_memory_allocated(dev))
+            / 2**30 if cuda else 0.0,
+            factor_shape=tuple(fine.factors.inv_hi.shape),
+            fine_inv_gb=(fine.factors.inv_hi.nbytes
+                         + fine.factors.inv_lo.nbytes) / 1e9,
+            fine_applies=fine.applies, coarse_applies=coarse.applies,
+            n_c=coarse.V.shape[1] * p.topo.n_sub,
+            u=u.cpu() if rank == 0 else None, kernels=[])
+        del xs
+        if stages:
+            torch.save(ring_stages(p, M, res),
+                       os.path.join(out_dir, f"rank{rank}_stages.pt"))
+        if rank == 0 and cuda:
+            flush_buf = torch.empty(2 * 50 * 2**20, dtype=torch.uint8,
+                                    device=dev)
+            gen = torch.Generator(device=dev).manual_seed(0)
+            out["kernels"] = time_kernel(ddmatvec, "ring_dd_sharded", M.precs,
+                                         shapes, flush_buf, gen)
+        mesh.barrier()
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_sharded(ring_ref, launches, device=None, size=None, parts=None,
+                stage_refs=None):
+    """Phase 7: ``ring_dd`` (default: at full size, on the card) on
+    SHARDED_RANKS ranks of one process group (NCCL with a card per rank,
+    else gloo on the cards there are), spawned here; held to the
+    single-device run's count (``ring_ref``), its true residual limit and
+    its solution, with the iterates bit-identical on every rank.  Returns
+    the kernel entries of rank 0's shapes.  ``device="cpu"`` with a small
+    ``size``/``parts`` rehearses it on the CPU.  ``stage_refs`` (label ->
+    :func:`ring_stages` of a single-device build) prints each rank's
+    stages against them (:func:`compare_stages`)."""
+    import torch.multiprocessing as mp
+
+    world = SHARDED_RANKS
+    cuda = device is None or torch.device(device).type == "cuda"
+    if size is None:
+        size, parts = FULL["islands"]
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    out_dir = tempfile.mkdtemp(dir=tmp_dir())
+    t0 = time.perf_counter()
+    mp.start_processes(sharded_rank, nprocs=world, start_method="spawn",
+                       args=(world, f"file://{out_dir}/rendezvous", out_dir,
+                             device, size, parts, stage_refs is not None))
+    wall = time.perf_counter() - t0
+    rs = [torch.load(os.path.join(out_dir, f"rank{k}.pt"), weights_only=False)
+          for k in range(world)]
+    r0 = rs[0]
+    print(f"sharded ring_dd (islands {size}^2/{math.prod(parts)}, {world} "
+          f"ranks, backend {r0['backend']}, devices "
+          f"{[r['device'] for r in rs]}): {wall:.3f} s for the spawn and "
+          f"every rank's run", flush=True)
+    for r in rs:
+        print(f"sharded rank {r['rank']}: " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in r["split"].items())
+            + f", total {r['secs']:.3f} s, peak {r['peak_gib']:.2f} GiB, "
+            f"fine dd inverse {tuple(r['factor_shape'])} "
+            f"{r['fine_inv_gb']:.3f} GB, iterations {r['iterations']}, "
+            f"true rel residual {r['true_res']:.3e}, dd_matvec launches by "
+            f"shape {r['shapes']}, applies {r['fine_applies']} fine + "
+            f"{r['coarse_applies']} coarse, extension routes {r['routes']}, "
+            f"final iterate sha256 {r['x_sha'][:16]}", flush=True)
+    e = rel_err(r0["u"], ring_ref["u"])
+    same = (all(r["same_as_all"] for r in rs)
+            and len({r["x_sha"] for r in rs}) == 1)
+    print(f"sharded ring_dd: {r0['iterations']} iterations against the "
+          f"single-device {ring_ref['iterations']}, solution rel diff "
+          f"{e:.3e} from the single-device one (limit {SOLUTION_TOL:g}), "
+          f"final iterates bit-identical on all ranks: {same}", flush=True)
+    if stage_refs is not None:
+        compare_stages(stage_refs, out_dir, world, math.prod(parts))
+    n_loc = math.prod(parts) // world
+    for r in rs:
+        n_pad = r["factor_shape"][1]
+        # 3 launches per dd apply at each level; none on the CPU
+        want = {(n_loc, n_pad, n_pad): 3 * r["fine_applies"],
+                (1, r["n_c"], r["n_c"]): 3 * r["coarse_applies"]} if cuda else {}
+        if not (r["converged"] and r["iterations"] == ring_ref["iterations"]
+                and r["true_res"] <= TRUE_RES_MAX["islands"]
+                and r["factor_shape"][0] == n_loc
+                and r["shapes"] == want and all(want.values())
+                and r["routes"]["direct"] >= 1):
+            fail(f"sharded ring_dd rank {r['rank']} did not run as the "
+                 f"single-device path: {r['iterations']} iterations, true "
+                 f"rel residual {r['true_res']:.3e}, factor batch "
+                 f"{r['factor_shape']}, launches {r['shapes']} (want {want}), "
+                 f"routes {r['routes']}")
+    if not (e <= SOLUTION_TOL and same):
+        fail("the sharded ring_dd solution differs from the single-device "
+             "one or between ranks")
+    launches["ring_dd_sharded"] = sum(r0["shapes"].values())
+    return r0["kernels"]
+
+
+# the ring coarse space's GEVP and extension outputs of the current run,
+# set by the wrappers that record_ring_stages installs
+RING_STAGES = {}
+
+
+def record_ring_stages():
+    """Wrap the ring coarse space's eigensolve and extension so that a run
+    keeps their outputs (eigenvalues, ring eigenvectors, extended basis);
+    the build itself is unchanged."""
+    from ddm_tpu_torch.coarse import ring
+
+    gevp, extension = ring.solve_gevp, ring._ring_extension
+
+    def recorded_gevp(*args, **kwargs):
+        lam, V, active = gevp(*args, **kwargs)
+        RING_STAGES.update(gevp_lam=lam.clone(), gevp_V=V.clone())
+        return lam, V, active
+
+    def recorded_extension(*args, **kwargs):
+        ext = extension(*args, **kwargs)
+        RING_STAGES["extension"] = ext.clone()
+        return ext
+
+    ring.solve_gevp, ring._ring_extension = recorded_gevp, recorded_extension
+
+
+# stages of ring_stages with one row per subdomain, in build order; the
+# others are replicated
+SLAB_STAGES = ("fine_inv_hi", "fine_inv_lo", "gevp_lam", "gevp_V",
+               "extension", "V", "alpha")
+
+
+def in_slabs(fn, k, *batches):
+    """``fn`` over slabs of ``k`` subdomains of ``batches``, concatenated:
+    a batched product as a rank of ``k`` subdomains takes it."""
+    return torch.cat([fn(*(b[i:i + k] for b in batches))
+                      for i in range(0, batches[0].shape[0], k)])
+
+
+def coarse_apply_in_slabs(G, d, k):
+    """``GalerkinPreconditioner.apply`` of a single-device build with its
+    restriction and prolongation taken in slabs of ``k`` subdomains, as
+    the ranks take them (their all-gathers only move bits)."""
+    from ddm_tpu_torch.precond.extract import (gather_subdomain,
+                                               scatter_add_subdomain)
+
+    d_sub = gather_subdomain(d, G.sub2glob)
+    alpha = in_slabs(lambda V, x: (V @ x[:, :, None])[:, :, 0], k, G.V, d_sub)
+    beta = G._coarse_solve(alpha.reshape(-1)).reshape(alpha.shape)
+    x_sub = in_slabs(lambda V, y: (V.mT @ y[:, :, None])[:, :, 0], k, G.V,
+                     beta)
+    return scatter_add_subdomain(x_sub, G.dualT)
+
+
+def ring_stages(p, M, res, slab=None):
+    """The stages of a ``ring_dd`` build (RING_STAGES of its run) and of
+    its solve, on the CPU: the coarse restriction ``alpha`` of a vector
+    drawn from seed 0, one apply of each level to it (on a sharded build,
+    every rank calls this together), and the final iterate.  ``slab``: a
+    single-device build's restriction and coarse apply taken in slabs of
+    that many subdomains (:func:`coarse_apply_in_slabs`)."""
+    from ddm_tpu_torch.precond.extract import gather_subdomain
+
+    fine, coarse = M.precs
+    gen = torch.Generator().manual_seed(0)
+    v = torch.randn(p.rhs.shape, generator=gen,
+                    dtype=torch.float64).to(p.rhs.device)
+    out = dict(RING_STAGES, fine_inv_hi=fine.factors.inv_hi,
+               fine_inv_lo=fine.factors.inv_lo, V=coarse.V, E=coarse.E_mat)
+    # the coarse dd inverse on the card, its Cholesky factor on the CPU
+    out.update({f"coarse_{k}": x for k, x in vars(coarse.coarse).items()
+                if torch.is_tensor(x)})
+    d_sub = gather_subdomain(v, coarse.sub2glob)
+    out["alpha"] = in_slabs(lambda V, x: (V @ x[:, :, None])[:, :, 0],
+                            slab or d_sub.shape[0], coarse.V, d_sub)
+    out.update(fine_apply=fine.apply(v),
+               coarse_apply=(coarse.apply(v) if slab is None
+                             else coarse_apply_in_slabs(coarse, v, slab)),
+               x=res.x)
+    return {k: x.cpu() for k, x in out.items()}
+
+
+def stage_diff(a, ref):
+    """(bit-equal rows, rows, largest |a - ref|, that over the largest
+    |ref|) of two stages of one shape (a vector is one row)."""
+    rows = a.shape[0] if a.ndim > 1 else 1
+    a, ref = a.double().reshape(rows, -1), ref.double().reshape(rows, -1)
+    d = float((a - ref).abs().max())
+    return (int((a == ref).all(1).sum()), rows, d,
+            d / (float(ref.abs().max()) or 1.0))
+
+
+def compare_stages(refs, out_dir, world, n_sub):
+    """Print each rank's stages against the same rows of every reference
+    in ``refs`` (label -> ring_stages of a single-device build).  The
+    eigenvectors and the bases take the reference's sign per vector first:
+    a flipped vector spans the same coarse space."""
+    k = n_sub // world
+    for r in range(world):
+        got = torch.load(os.path.join(out_dir, f"rank{r}_stages.pt"))
+        for name, a in got.items():  # in build order
+            line = []
+            for label, ref in refs.items():
+                b = (ref[name][r * k:(r + 1) * k] if name in SLAB_STAGES
+                     else ref[name])
+                if a.shape != b.shape:
+                    line.append(f"{label}: shape {tuple(b.shape)}")
+                    continue
+                a_s = a
+                if name in ("gevp_V", "extension", "V"):
+                    a_s = torch.where((a * b).sum(-1, keepdim=True) < 0, -a, a)
+                eq, rows, d, rel = stage_diff(a_s, b)
+                line.append(f"{label}: {eq}/{rows} bit-equal, max abs diff "
+                            f"{d:.3e} (rel {rel:.3e})")
+            print(f"stage rank {r} {name} {tuple(a.shape)}: "
+                  + "; ".join(line), flush=True)
+        del got
+
+
+def sharded_only():
+    """``--sharded``: the kernel's build, ``ring_dd`` on one card as the
+    reference, then phase 7 alone."""
+    from ddm_tpu_torch.kernels import build
+
+    dev = torch.device("cuda", 0)
+    build.build("dd_matvec")
+    size, parts = FULL["islands"]
+    record_ring_stages()
+    refs = {}
+    for label in ("single", "single@slab"):
+        r = run_single_ring(size, parts, dev, label == "single@slab")
+        check_path("ring_dd", label, r)
+        refs[label] = ring_stages(
+            r["p"], r["M"], r["res"],
+            math.prod(parts) // SHARDED_RANKS if label == "single@slab"
+            else None)
+        if label == "single":
+            ring_ref = dict(iterations=r["res"].iterations, u=r["u"].cpu())
+        r = None
+    launches = {}
+    run_sharded(ring_ref, launches, stage_refs=refs)
+    print(f"launches by path: {launches}", flush=True)
+
+
+def run_single_ring(size, parts, device, at_slab=False):
+    """``ring_dd`` on one device; ``at_slab``: with every chunked stage
+    (``solvers/direct.py:chunked_batch``) cut into slabs of a sharded
+    rank's subdomains, so that it sees the batches the ranks see."""
+    from ddm_tpu_torch.solvers import direct
+
+    chunk = direct.batch_chunk_size
+    if at_slab:
+        k = math.prod(parts) // SHARDED_RANKS
+        direct.batch_chunk_size = lambda *a, **kw: min(chunk(*a, **kw), k)
+    try:
+        return run_path("ring_dd", size, parts, device)
+    finally:
+        direct.batch_chunk_size = chunk
+
+
+SETUP_PROFILE_FNS = ("build_topology", "setup_topology", "assembly_plan",
+                     "boundary_nodes", "constrained_system", "pou_weights")
+
+
+def setup_profile(device="cuda"):
+    """``--setup-profile``: ``cProfile`` of ``setup_problem`` for islands
+    384^2 / 256 subdomains with the problem on the card (or on
+    ``device``), cold (the first call in the process) and warm, each with
+    its wall seconds, the cumulative seconds of the host stages in
+    SETUP_PROFILE_FNS and the functions that took the most time of their
+    own."""
+    import cProfile
+    import pstats
+
+    from ddm_tpu_torch import api
+
+    dev = torch.device(device)
+    size, parts = FULL["islands"]
+    for run in ("cold", "warm"):
+        prof = cProfile.Profile()
+        t0 = time.perf_counter()
+        prof.enable()
+        p = path_problem(api, "ring_dd", size, parts, dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        prof.disable()
+        wall = time.perf_counter() - t0
+        stats = pstats.Stats(prof).stats
+        cum = {}
+        for (_, _, fn), (_, _, _, ct, _) in stats.items():
+            if fn in SETUP_PROFILE_FNS:
+                cum[fn] = cum.get(fn, 0.0) + ct
+        print(f"setup_problem profile ({run}, islands {size}^2/"
+              f"{math.prod(parts)}, n_pad {p.topo.n_pad}): {wall:.3f} s; "
+              + ", ".join(f"{fn} {cum.get(fn, 0.0):.3f} s "
+                          f"({cum.get(fn, 0.0) / wall:.1%})"
+                          for fn in SETUP_PROFILE_FNS), flush=True)
+        own = sorted(stats.items(), key=lambda kv: -kv[1][2])[:8]
+        print("  most own time: " + "; ".join(
+            f"{os.path.basename(f)}:{line} {fn} {tt:.3f} s"
+            for (f, line, fn), (_, _, tt, _, _) in own), flush=True)
+        del p
+
+
 def run_solver_bench(dev):
     """The batched direct-solver benchmark at its defaults; raise if a
     factorization's residual is over its limit."""
@@ -1559,6 +1959,8 @@ def main():
                 r = run_path(path, size, parts, dev)
             check_path(path, run, r)
         launches[path] = r["launches"]
+        if path == "ring_dd":  # the reference of the sharded phase
+            ring_ref = dict(iterations=r["res"].iterations, u=r["u"].cpu())
         gevp[path] = dict(
             secs=r["events"][("Eigensolver", "solve GEVP")],
             peak=r["peaks"][("Eigensolver", "solve GEVP")],
@@ -1652,6 +2054,10 @@ def main():
     entries += run_cli_paths(dev, gen, flush_buf, launches)
     run_solver_bench(dev)
 
+    # -- 7. sharded: ring_dd over SHARDED_RANKS ranks --------------------
+    del flush_buf
+    entries += run_sharded(ring_ref, launches)
+
     # top-level numbers: the ring_dd path at its fine shape (the first
     # entry); every path's shapes stand in "shapes", each path's total over
     # its shapes in launches_by_path
@@ -1682,5 +2088,9 @@ if __name__ == "__main__":
         sweep_plans()
     elif sys.argv[1:2] == ["--witness"]:
         witness()
+    elif sys.argv[1:2] == ["--sharded"]:
+        sharded_only()
+    elif sys.argv[1:2] == ["--setup-profile"]:
+        setup_profile()
     else:
         main()

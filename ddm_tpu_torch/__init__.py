@@ -19,7 +19,10 @@ Conventions:
   their ``ddm_tpu`` counterparts, so both packages build the same
   subdomains;
 * a hand-written CUDA kernel runs only on CUDA tensors; CPU tensors take
-  its plain PyTorch version.  There is no fallback from one to the other.
+  its plain PyTorch version.  There is no fallback from one to the other;
+* one problem can also run on several devices: ``api.build_preconditioner``
+  and ``api.solve`` take a ``core.mesh.SubdomainMesh`` and shard the
+  subdomain batch over the ranks of a ``torch.distributed`` group.
 
 This package never imports ``jax``.
 """

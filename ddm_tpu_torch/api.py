@@ -137,21 +137,43 @@ def setup_problem(
     )
 
 
-def build_preconditioner(p: DDMProblem):
-    """One- or two-level preconditioner per config (``coarsespace.type``)."""
+def build_preconditioner(p: DDMProblem, mesh=None):
+    """One- or two-level preconditioner per config (``coarsespace.type``).
+
+    With ``mesh`` (a ``core.mesh.SubdomainMesh`` on ``p``'s device; every
+    rank holds the same problem and calls this together) the whole setup
+    runs sharded (``core.mesh.setup_sharding``): the rank builds the
+    extraction, factorization, eigensolves and coarse basis of its slab of
+    subdomains only, and the coarse matrix and its factor replicated.
+    Pass the same mesh to :func:`solve`."""
     from .precond.two_level import build_two_level
 
-    return build_two_level(p)
+    if mesh is None:
+        return build_two_level(p)
+    from .core.mesh import setup_sharding
+
+    if mesh.device != p.device:
+        raise ValueError(f"the mesh's device {mesh.device} is not the "
+                         f"problem's {p.device}")
+    with setup_sharding(mesh, p.topo.n_sub):
+        return build_two_level(p)
 
 
-def solve(p: DDMProblem, prec=None) -> KrylovResult:
-    """Krylov solve from config (subtree ``solver``), from a zero guess."""
-    prec = prec if prec is not None else build_preconditioner(p)
+def solve(p: DDMProblem, prec=None, mesh=None) -> KrylovResult:
+    """Krylov solve from config (subtree ``solver``), from a zero guess.
+    With ``mesh``, the preconditioner's subdomain batch is sharded over its
+    ranks (``core.mesh.solve_sharded``): every rank runs the same
+    iterations on replicated vectors and returns the same result."""
+    prec = prec if prec is not None else build_preconditioner(p, mesh=mesh)
+    x0 = torch.zeros_like(p.rhs)
     with scoped("Solver", "solve", p.device):
-        return solve_from_config(
-            p.A.mv, prec.apply, p.rhs, torch.zeros_like(p.rhs), p.ptree,
-            "solver",
-        )
+        if mesh is not None:
+            from .core.mesh import solve_sharded
+
+            return solve_sharded(p.A, prec, p.rhs, x0, p.ptree, mesh,
+                                 p.topo.n_sub)
+        return solve_from_config(p.A.mv, prec.apply, p.rhs, x0, p.ptree,
+                                 "solver")
 
 
 def solution(p: DDMProblem, res: KrylovResult) -> torch.Tensor:

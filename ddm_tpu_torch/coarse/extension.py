@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..core.indexmaps import extraction_map
+from ..core.mesh import batch_max
 from ..kernels.ddmatvec import tf32_off
 from ..solvers.direct import BatchedInverse, factor_batched
 
@@ -39,11 +40,13 @@ def compact_maps(mask: np.ndarray):
     (n_sub, r_pad) int32 listing the masked dofs in slot order (0-padded),
     cvalid (n_sub, r_pad) marking real slots, and pos (n_sub, n_pad) the
     inverse map (position in idx, r_pad where unmasked).  The stable sort
-    fixes the slot order, and with it which eigenvector lands where."""
+    fixes the slot order, and with it which eigenvector lands where.  Under
+    ``core.mesh.setup_sharding`` r_pad is the whole batch's, as on one
+    device."""
     mask = np.asarray(mask, dtype=bool)
     n_sub, n_pad = mask.shape
     counts = mask.sum(axis=1)
-    r_pad = max(int(counts.max()), 1)
+    r_pad = max(batch_max(int(counts.max())), 1)
     order = np.argsort(~mask, axis=1, kind="stable")
     idx = order[:, :r_pad].astype(np.int32)
     cvalid = np.arange(r_pad)[None, :] < counts[:, None]

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..config import ParamTree
+from ..core.mesh import active_setup, local_rows
 from .basis import CoarseBasis, finalize_basis
 from .extension import energy_minimal_extension
 from .geneo import dirichlet_dense
@@ -32,8 +33,12 @@ def harmonic_extension_coarse_space(p, ptree: ParamTree) -> CoarseBasis:
     A_dir, _ = dirichlet_dense(p)
     valid = torch.as_tensor(topo.valid, device=device)
     boundary = valid & torch.as_tensor(topo.boundary, device=device)
-    data = torch.as_tensor(rng.normal(size=(topo.n_sub, nev, topo.n_pad)),
-                           device=device)
+    # drawn for the full batch, so a rank's slab (core/mesh.py) gets the
+    # rows the single-device build gives those subdomains
+    ctx = active_setup()
+    n_full = topo.n_sub if ctx is None else ctx.n_sub
+    data = torch.as_tensor(
+        local_rows(rng.normal(size=(n_full, nev, topo.n_pad))), device=device)
     data = torch.where(boundary[:, None, :], data, 0.0)
     V = energy_minimal_extension(A_dir, valid & ~boundary, data)
     V = torch.where(valid[:, None, :], V, 0.0)

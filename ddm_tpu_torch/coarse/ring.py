@@ -25,6 +25,7 @@ import torch
 
 from ..config import ParamTree
 from ..core.indexmaps import extraction_map
+from ..core.mesh import batch_max
 from ..eigen import solve_gevp
 from ..eigen.params import EigensolverParams
 from ..fem.subassembly import scale_matrix_with_pou
@@ -84,7 +85,7 @@ def _ring_extension(p, ptree, ext_cfg, ext_free, data, fine, local_cols=None):
             ext, rel = energy_minimal_extension_pcg(
                 p.A, p.topo, ext_free, data, Minv, local_cols=local_cols, **att,
             )
-            worst = float(rel.max())
+            worst = batch_max(float(rel.max()))  # every rank escalates
             if worst <= accept:
                 ROUTES["pcg"] += 1
                 return ext

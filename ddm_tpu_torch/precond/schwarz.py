@@ -7,7 +7,10 @@ copy -> subdomain solve -> POU scale -> halo add becomes
     gather (n_sub, n_pad) -> batched subdomain solve -> POU mask ->
     fixed-order scatter-add
 
-with the subdomain factorizations held as one dense batch.
+with the subdomain factorizations held as one dense batch.  Built under
+``core.mesh.setup_sharding``, a rank holds its slab of the batch only; its
+apply gathers the ranks' solution slabs into the full batch and takes the
+same fixed-order sum as the single-device apply.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch
 
 from ..config import ParamTree
 from ..core.indexmaps import DDMTopology, dual_scatter_map, extraction_map
+from ..core.mesh import SubdomainMesh, active_setup, local_rows, local_topology
 from ..core.sparse import SparseELL
 from ..obs.logger import scoped
 from ..fem.subassembly import eliminate_dirichlet_dense
@@ -34,14 +38,21 @@ class SchwarzPreconditioner:
     # BatchedCholesky | BatchedLU | BatchedInverse | BatchedInverseDD |
     # SparseRefinedInverse
     factors: object
-    dualT: torch.Tensor  # (K, n) int64 gather-dual of the scatter
+    # (K, n) int64 gather-dual of the scatter; its flat indices address
+    # the full subdomain batch, also when this rank holds a slab of it
+    dualT: torch.Tensor
     applies: int = 0  # number of apply() calls so far
+    # the ranks over the subdomain batch when the batched fields above are
+    # this rank's slab (core/mesh.py), else None
+    mesh: SubdomainMesh | None = None
 
     def apply(self, d: torch.Tensor) -> torch.Tensor:
         self.applies += 1
         d_sub = gather_subdomain(d, self.sub2glob)
         x_sub = self.factors.solve(d_sub)
         x_sub = torch.where(self.valid, x_sub * self.pou, 0.0)
+        if self.mesh is not None:
+            x_sub = self.mesh.all_gather(x_sub)
         return scatter_add_subdomain(x_sub, self.dualT)
 
 
@@ -65,8 +76,13 @@ def build_schwarz(
     level) eliminates each subdomain's boundary dofs from its matrix before
     factorising (reference: pdelab_schwarz.hh:163-164).  The TPU
     construction knobs ``construction`` and ``newton_rtol`` are accepted and
-    ignored: the inverse is always built exactly in f64."""
+    ignored: the inverse is always built exactly in f64.  Under
+    ``setup_sharding`` everything but the scatter map is built for the
+    rank's slab alone."""
     device = ell.vals.device
+    ctx = active_setup()
+    dual = dual_scatter_map(topo)  # of the full batch
+    topo, pou = local_topology(topo), local_rows(pou)
     sub = ptree.sub(subtree_name)
     type_string = sub.get("type", "restricted")
     if type_string not in ("standard", "restricted"):
@@ -125,5 +141,6 @@ def build_schwarz(
                            device=device)
     return SchwarzPreconditioner(
         sub2glob=sub2glob, valid=valid, pou=pou_t, factors=factors,
-        dualT=t(dual_scatter_map(topo).astype(np.int64)),
+        dualT=t(dual.astype(np.int64)),
+        mesh=ctx.mesh if ctx is not None else None,
     )

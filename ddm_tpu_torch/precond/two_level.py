@@ -65,14 +65,20 @@ _CS_NEEDS_FINE = {"geneo_ring", "msgfem_ring"}
 
 
 def build_two_level(p):
-    """p: api.DDMProblem.  Returns the combined two-level preconditioner."""
+    """p: api.DDMProblem.  Returns the combined two-level preconditioner.
+    Under ``core.mesh.setup_sharding`` the coarse space is built for the
+    rank's slab of subdomains (the builders see a problem whose topology
+    and POU are that slab), the fine level cuts its slab itself, and the
+    Galerkin build gathers what couples the slabs."""
+    from ..core.mesh import local_problem
+
     ptree = p.ptree
     cs_type = ptree.sub("coarsespace").get("type", "geneo")
     if cs_type == "none":
         return build_schwarz(p.A, p.topo, p.pou, ptree)
     fine = (build_schwarz(p.A, p.topo, p.pou, ptree)
             if cs_type in _CS_NEEDS_FINE else None)
-    basis = build_coarse_space(p, cs_type, ptree, fine=fine)
+    basis = build_coarse_space(local_problem(p), cs_type, ptree, fine=fine)
     coarse_ptree = ptree if "coarse_solver.type" in ptree else None
     # every coarse space built here is POU-finalized (vanishes on subdomain
     # boundaries), so the pairwise-local coarse matrix is exact; a basis that
