@@ -8,7 +8,9 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
 1. device — requires CUDA (exits 1 without it, before printing any result)
    and prints ``nvidia-smi --query-gpu=name,power.limit`` for card 0;
 2. build — compiles every hand-written kernel of the main paths from
-   ``ddm_tpu_torch/csrc`` with nvcc and prints the build time;
+   ``ddm_tpu_torch/csrc`` with nvcc, and beside it the native host
+   topology ``ddm_tpu_torch/_native/ddmcore.cpp`` with g++, and prints
+   the build times;
 3. kernel vs plain — ``dd_matvec`` against its plain PyTorch version at
    (4, 256, 256) q=200, (2, 640, 640), a ragged (3, 177, 177), a ragged
    one-matrix (1, 1001, 1001), small matrices whose plans take clusters of
@@ -57,6 +59,10 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    the elasticity example at 8 x 2 x 3 cells / 2 slabs with the scripted
    steel-rubber file, and the DG example at 16^2 / 4 with the symmetric
    scripted file;
+   then, on the host, ``build_topology`` on the native route against the
+   scipy route at the three full-size grids (islands 384^2 / 256, the
+   L-shape refine 4 / 128 RCB, 3-D 56^3 / 512), overlap 2, both times
+   printed: every array must be equal, and the native route available;
 5. the main paths, nev 8, Cholesky coarse solve, restart 50 to 1e-8 with
    verified termination, through the user entry points ``setup_problem ->
    build_preconditioner -> solve -> solution``, each run cold then warm,
@@ -171,6 +177,8 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    CLI_TRUE_RES_MAX and ELAST3D_PREC_RES_MAX; then the direct-solver
    benchmark ``examples/solver_bench.main`` at its defaults (n 512, batch
    16), whose residuals must lie within 1e-8 (1e-3 for the f32 inverse);
+   every path of this phase must have built its topology on the native
+   route (``core.indexmaps.TOPOLOGY_ROUTES``, zeroed before the phase);
 
 6. after each dd path's warm run, the kernel against its plain version at
    that path's shapes (msgfem_dd: its coarse shape; newton_p2_dd: the
@@ -196,7 +204,16 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    fine factor batch of 64 and launch the kernel 3 times per apply at
    both shapes; the sharded solution must lie within SOLUTION_TOL of the
    single-device one, and the final iterates must be bit-identical on
-   every rank.  A failure on any rank ends the script non-zero.
+   every rank; each rank must have built its topology once, natively.
+   A failure on any rank ends the script non-zero;
+8. bench — ``python -m ddm_tpu_torch.bench`` at its defaults, a fresh
+   process with a timeout (BENCH_TIMEOUT_S), its JSON line printed after
+   ``bench:``: islands 384^2 / 256, geneo_ring nev 8 in f64, warm build +
+   solve, then full geneo, then the two CPU baselines (forked workers and
+   sequential SuperLU + LAPACK GEVPs).  geneo_ring must take at most 17
+   iterations and geneo 18, all four runs must reach a true relative
+   residual <= 1e-7, and the two baselines must converge within one
+   iteration of each other.
 
 Then one JSON line of per-kernel results, the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}.
@@ -233,9 +250,14 @@ largest difference.
     python3 chip_smoke.py --setup-profile
 
 profiles ``setup_problem`` of islands 384^2 / 256 with the problem on the
-card under ``cProfile``, cold and warm: its wall seconds, the cumulative
-seconds of its host stages (``build_topology`` and the others of
-SETUP_PROFILE_FNS) and the functions with the most time of their own.
+card under ``cProfile``, cold and warm: its wall seconds, the topology
+route it took, the cumulative seconds of its host stages
+(``build_topology`` and the others of SETUP_PROFILE_FNS) and the functions
+with the most time of their own.
+
+    python3 chip_smoke.py --bench
+
+runs phase 8 alone.
 
     python3 chip_smoke.py --plans
 
@@ -1463,6 +1485,7 @@ def sharded_rank(rank, world, init_method, out_dir, device, size, parts,
 
     from ddm_tpu_torch import api
     from ddm_tpu_torch.coarse import ring
+    from ddm_tpu_torch.core import indexmaps
     from ddm_tpu_torch.core import mesh as dmesh
     from ddm_tpu_torch.kernels import ddmatvec
     from ddm_tpu_torch.obs.logger import Logger
@@ -1479,8 +1502,9 @@ def sharded_rank(rank, world, init_method, out_dir, device, size, parts,
         if cuda:
             torch.cuda.reset_peak_memory_stats(dev)
         Logger.reset()
-        for k in ring.ROUTES:
-            ring.ROUTES[k] = 0
+        for routes in (ring.ROUTES, indexmaps.TOPOLOGY_ROUTES):
+            for k in routes:
+                routes[k] = 0
         ddmatvec.dd_matvec_cuda.shapes.clear()
         t0 = time.perf_counter()
         p = path_problem(api, "ring_dd", size, parts, dev)
@@ -1502,6 +1526,7 @@ def sharded_rank(rank, world, init_method, out_dir, device, size, parts,
             x_sha=hashlib.sha256(res.x.cpu().numpy().tobytes()).hexdigest(),
             same_as_all=all(torch.equal(xs[0], x) for x in xs),
             shapes=shapes, routes=dict(ring.ROUTES),
+            topology_routes=dict(indexmaps.TOPOLOGY_ROUTES),
             split=phase_split({k: v.total for k, v in log.events.items()}),
             # the scopes fold the allocator's peak into the logger's and
             # reset it (obs/logger.py): the peak is the larger of the two
@@ -1571,6 +1596,7 @@ def run_sharded(ring_ref, launches, device=None, size=None, parts=None,
             f"true rel residual {r['true_res']:.3e}, dd_matvec launches by "
             f"shape {r['shapes']}, applies {r['fine_applies']} fine + "
             f"{r['coarse_applies']} coarse, extension routes {r['routes']}, "
+            f"topology routes {r['topology_routes']}, "
             f"final iterate sha256 {r['x_sha'][:16]}", flush=True)
     e = rel_err(r0["u"], ring_ref["u"])
     same = (all(r["same_as_all"] for r in rs)
@@ -1591,12 +1617,14 @@ def run_sharded(ring_ref, launches, device=None, size=None, parts=None,
                 and r["true_res"] <= TRUE_RES_MAX["islands"]
                 and r["factor_shape"][0] == n_loc
                 and r["shapes"] == want and all(want.values())
-                and r["routes"]["direct"] >= 1):
+                and r["routes"]["direct"] >= 1
+                and r["topology_routes"] == {"native": 1, "python": 0}):
             fail(f"sharded ring_dd rank {r['rank']} did not run as the "
                  f"single-device path: {r['iterations']} iterations, true "
                  f"rel residual {r['true_res']:.3e}, factor batch "
                  f"{r['factor_shape']}, launches {r['shapes']} (want {want}), "
-                 f"routes {r['routes']}")
+                 f"routes {r['routes']}, topology routes "
+                 f"{r['topology_routes']}")
     if not (e <= SOLUTION_TOL and same):
         fail("the sharded ring_dd solution differs from the single-device "
              "one or between ranks")
@@ -1764,6 +1792,120 @@ def run_single_ring(size, parts, device, at_slab=False):
         direct.batch_chunk_size = chunk
 
 
+def islands_topology_inputs(grid, n_sub=None, parts=None):
+    """The inputs of ``build_topology`` for islands on ``grid``, built on
+    the host as ``setup_problem`` builds them (``core.setup``)."""
+    from ddm_tpu_torch.core.setup import partition_elements, topology_inputs
+    from ddm_tpu_torch.fem import problems
+    from ddm_tpu_torch.fem.discretize import Discretization
+
+    disc = Discretization(grid, problems.islands(), torch.device("cpu"))
+    return topology_inputs(
+        disc, partition_elements(disc, n_sub=n_sub, parts=parts))
+
+
+TOPOLOGY_FIELDS = ("n_pad", "sub2glob", "valid", "owner", "boundary",
+                   "bdist", "g2l_keys", "g2l_locs", "sizes")
+
+
+def check_native_topology():
+    """Before phase 5: ``build_topology`` on the native route against the
+    scipy route at the three full sizes of the main paths' grids (islands
+    384^2 / 256, the L-shape refine 4 / 128 RCB, 3-D 56^3 / 512), overlap
+    2; every array must be equal.  Raises if the native route is
+    unavailable."""
+    import numpy as np
+
+    from ddm_tpu_torch import _native, api
+    from ddm_tpu_torch.core.indexmaps import build_topology
+    from ddm_tpu_torch.fem.grids import structured_grid
+
+    _native.load()  # the g++ build stays out of the native times
+    size, parts = FULL["islands"]
+    hsize, hparts = FULL["hex"]
+    usize, un_sub = FULL["unstr"]
+    cases = [
+        (f"islands {size}^2/{math.prod(parts)}",
+         lambda: islands_topology_inputs(structured_grid((size, size)),
+                                         parts=parts)),
+        (f"L-shape refine {usize} / {un_sub} RCB",
+         lambda: islands_topology_inputs(
+             api.make_grid(path_ptree(api, "unstr_f64", usize)),
+             n_sub=un_sub)),
+        (f"3-D {hsize}^3/{math.prod(hparts)}",
+         lambda: islands_topology_inputs(structured_grid((hsize,) * 3),
+                                         parts=hparts)),
+    ]
+    for label, inputs in cases:
+        adj, M0, owner = inputs()
+        t0 = time.perf_counter()
+        nat = build_topology(adj, M0, owner, 2, use_native=True)
+        t_nat = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        py = build_topology(adj, M0, owner, 2, use_native=False)
+        t_py = time.perf_counter() - t0
+        differ = [f for f in TOPOLOGY_FIELDS
+                  if not np.array_equal(getattr(nat, f), getattr(py, f))]
+        print(f"topology {label}, overlap 2 (n_pad {nat.n_pad}): native "
+              f"{t_nat:.3f} s, python {t_py:.3f} s ({t_py / t_nat:.2f}x), "
+              f"every array equal: {not differ}", flush=True)
+        if differ:
+            fail(f"native topology of {label} differs from the scipy "
+                 f"route in {differ}")
+
+
+# phase 8: python -m ddm_tpu_torch.bench at its defaults (islands 384^2/256,
+# geneo_ring nev 8, f64): bench.py's headline limit, the like-for-like
+# geneo limit (MAX_ITERS["geneo_dd"]), the true residual limit of its four
+# runs, and the two CPU baselines within one iteration of each other
+BENCH_CMD = [sys.executable, "-m", "ddm_tpu_torch.bench"]
+BENCH_TIMEOUT_S = 420
+BENCH_MAX_ITERS = {"iters": MAX_ITERS["ring_f64"],
+                   "iters_geneo": MAX_ITERS["geneo_dd"]}
+BENCH_TRUE_RES_MAX = 1e-7
+
+
+def run_bench():
+    """Phase 8: the benchmark entry point as a user runs it, a fresh
+    process with a timeout; prints its JSON line prefixed ``bench:`` and
+    its summary lines, and raises unless the counts and residuals hold."""
+    import json as json_mod
+
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        BENCH_CMD, cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    for line in proc.stderr.splitlines():
+        if line.startswith(("device", "host setup", "cpu ")):
+            print(f"bench log: {line}", flush=True)
+    lines = proc.stdout.splitlines()
+    if proc.returncode != 0 or len(lines) != 1:
+        print(proc.stderr[-4000:], file=sys.stderr, flush=True)
+        fail(f"python -m ddm_tpu_torch.bench exited {proc.returncode} with "
+             f"{len(lines)} lines on stdout")
+    print(f"bench: {lines[0]}", flush=True)
+    out = json_mod.loads(lines[0])
+    seq, par = out["cpu_sequential_baseline"], out["cpu_parallel_baseline"]
+    res = [out["true_rel_res"], out["true_rel_res_geneo"],
+           seq["true_rel_res"], par["true_rel_res"]]
+    print(f"bench: {wall:.1f} s in all; geneo_ring {out['iters']} its "
+          f"(limit {BENCH_MAX_ITERS['iters']}), geneo {out['iters_geneo']} "
+          f"(limit {BENCH_MAX_ITERS['iters_geneo']}), CPU sequential "
+          f"{seq['iters']}, parallel {par['iters']} ({par['workers']} "
+          f"workers, {out['cpu_count']} cores); true rel residuals "
+          + ", ".join(f"{r:.3e}" for r in res)
+          + f" (limit {BENCH_TRUE_RES_MAX:g})", flush=True)
+    if not (all(out[k] <= v for k, v in BENCH_MAX_ITERS.items())
+            and all(r <= BENCH_TRUE_RES_MAX for r in res)
+            and seq["converged"] and par["converged"]
+            and abs(seq["iters"] - par["iters"]) <= 1):
+        fail("the benchmark's counts or residuals are over their limits")
+
+
 SETUP_PROFILE_FNS = ("build_topology", "setup_topology", "assembly_plan",
                      "boundary_nodes", "constrained_system", "pou_weights")
 
@@ -1779,10 +1921,13 @@ def setup_profile(device="cuda"):
     import pstats
 
     from ddm_tpu_torch import api
+    from ddm_tpu_torch.core.indexmaps import TOPOLOGY_ROUTES
 
     dev = torch.device(device)
     size, parts = FULL["islands"]
     for run in ("cold", "warm"):
+        for k in TOPOLOGY_ROUTES:
+            TOPOLOGY_ROUTES[k] = 0
         prof = cProfile.Profile()
         t0 = time.perf_counter()
         prof.enable()
@@ -1797,7 +1942,8 @@ def setup_profile(device="cuda"):
             if fn in SETUP_PROFILE_FNS:
                 cum[fn] = cum.get(fn, 0.0) + ct
         print(f"setup_problem profile ({run}, islands {size}^2/"
-              f"{math.prod(parts)}, n_pad {p.topo.n_pad}): {wall:.3f} s; "
+              f"{math.prod(parts)}, n_pad {p.topo.n_pad}, topology routes "
+              f"{TOPOLOGY_ROUTES}): {wall:.3f} s; "
               + ", ".join(f"{fn} {cum.get(fn, 0.0):.3f} s "
                           f"({cum.get(fn, 0.0) / wall:.1%})"
                           for fn in SETUP_PROFILE_FNS), flush=True)
@@ -1824,6 +1970,10 @@ def run_solver_bench(dev):
 
 def main():
     # -- 1. device (CUDA checked by the caller) -----------------------------
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ddm_tpu_torch import _native
+    from ddm_tpu_torch.core.indexmaps import TOPOLOGY_ROUTES
     from ddm_tpu_torch.kernels import build, ddmatvec
     from ddm_tpu_torch.solvers.direct import dd_split
 
@@ -1836,9 +1986,16 @@ def main():
           f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     # -- 2. build ---------------------------------------------------------
-    t0 = time.perf_counter()
-    lib = build.build("dd_matvec")
-    print(f"build: {lib.name} in {time.perf_counter() - t0:.2f} s", flush=True)
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        return fn(*args), time.perf_counter() - t0
+
+    # nvcc for the kernel and g++ for the native topology, started together
+    with ThreadPoolExecutor(2) as ex:
+        builds = [ex.submit(timed, build.build, "dd_matvec"),
+                  ex.submit(timed, _native.build)]
+        for lib, secs in (f.result() for f in builds):
+            print(f"build: {lib.name} in {secs:.2f} s", flush=True)
 
     # -- 3. kernel vs plain at the test shapes and the coarse shape ---------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1941,7 +2098,12 @@ def main():
     # the example drivers through cli.main: the card against the CPU
     check_cli_small(dev, cpu)
 
+    # -- the native host topology against the scipy route at full size ---
+    check_native_topology()
+
     # -- 5. main paths at full size, cold then warm; 6. their kernel shapes --
+    for k in TOPOLOGY_ROUTES:
+        TOPOLOGY_ROUTES[k] = 0
     flush_buf = torch.empty(2 * 50 * 2**20, dtype=torch.uint8, device=dev)
     launches, entries, gevp = {}, [], {}
     for path in MAIN_PATHS:
@@ -2053,10 +2215,16 @@ def main():
     # the example paths through cli.main, then the direct-solver benchmark
     entries += run_cli_paths(dev, gen, flush_buf, launches)
     run_solver_bench(dev)
+    print(f"phase 5 topology routes: {TOPOLOGY_ROUTES}", flush=True)
+    if not (TOPOLOGY_ROUTES["native"] > 0 and TOPOLOGY_ROUTES["python"] == 0):
+        fail("a phase 5 path built its topology on the scipy route")
 
     # -- 7. sharded: ring_dd over SHARDED_RANKS ranks --------------------
     del flush_buf
     entries += run_sharded(ring_ref, launches)
+
+    # -- 8. bench: python -m ddm_tpu_torch.bench at its defaults ---------
+    run_bench()
 
     # top-level numbers: the ring_dd path at its fine shape (the first
     # entry); every path's shapes stand in "shapes", each path's total over
@@ -2092,5 +2260,7 @@ if __name__ == "__main__":
         sharded_only()
     elif sys.argv[1:2] == ["--setup-profile"]:
         setup_profile()
+    elif sys.argv[1:2] == ["--bench"]:
+        run_bench()
     else:
         main()

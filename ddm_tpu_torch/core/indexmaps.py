@@ -25,8 +25,10 @@ Everything here is numpy/scipy on host and runs once per (mesh, overlap).
 
 A copy of ``ddm_tpu/core/indexmaps.py`` (framework-neutral numpy, so the
 two packages build identical subdomains; tests/test_torch_core.py checks
-that they do).  Only the optional g++/ctypes topology path is left out: the
-pure-Python path below takes about 0.3 s at 384^2 / 256 subdomains.
+that they do), with its g++/ctypes topology route (``_native/``): native
+and scipy routes give equal arrays (tests/test_torch_native.py).
+``TOPOLOGY_ROUTES`` counts the route each ``build_topology`` call took in
+this process.
 """
 
 from __future__ import annotations
@@ -35,6 +37,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import scipy.sparse as sps
+
+TOPOLOGY_ROUTES = {"native": 0, "python": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -172,12 +176,50 @@ def dof_membership_from_elems(
     return M
 
 
+def _topology_native(adj_csr, membership0, overlap, cap):
+    """Native C++ route: (ids, bnd, dist) per subdomain, or None when the
+    library is unavailable (``_native.load``)."""
+    import ctypes
+
+    from .._native import load
+
+    lib = load()
+    if lib is None:
+        return None
+    n = adj_csr.shape[0]
+    n_sub = membership0.shape[0]
+    indptr = np.ascontiguousarray(adj_csr.indptr, dtype=np.int64)
+    indices = np.ascontiguousarray(adj_csr.indices, dtype=np.int32)
+    m0 = membership0.tocsr()
+    seed_off = np.ascontiguousarray(m0.indptr, dtype=np.int64)
+    seed_ids = np.ascontiguousarray(m0.indices, dtype=np.int32)
+
+    def ptr(a):
+        return a.ctypes.data_as(ctypes.c_void_p)
+
+    total = lib.ddm_topology_compute(
+        ptr(indptr), ptr(indices), n, ptr(seed_off), ptr(seed_ids), n_sub,
+        overlap, cap, 0,
+    )
+    offsets = np.empty(n_sub + 1, dtype=np.int64)
+    ids = np.empty(total, dtype=np.int32)
+    bnd = np.empty(total, dtype=np.uint8)
+    dist = np.empty(total, dtype=np.int32)
+    lib.ddm_topology_collect(ptr(offsets), ptr(ids), ptr(bnd), ptr(dist))
+    out = []
+    for k in range(n_sub):
+        s, e = offsets[k], offsets[k + 1]
+        out.append((ids[s:e], bnd[s:e].astype(bool), dist[s:e]))
+    return out
+
+
 def build_topology(
     adj: sps.spmatrix,
     membership0: sps.csr_matrix,
     dof_owner: np.ndarray,
     overlap: int,
     pad_to: int = 8,
+    use_native: bool | None = None,
 ) -> DDMTopology:
     """Build the overlapping-subdomain topology.
 
@@ -186,10 +228,30 @@ def build_topology(
     dof_owner: (n,) owning subdomain of each dof (lowest-subdomain-wins).
     overlap: number of matrix-graph extension rounds
              (reference: overlap_extension.hh round loop).
+    use_native: the C++ route (``_native/ddmcore.cpp``) when None and it
+    builds (a failed build warns), always when True (raises
+    ``RuntimeError`` if it is unavailable), never when False; both routes
+    give equal arrays.
     """
     n = adj.shape[0]
     n_sub = membership0.shape[0]
+    cap = 4 * overlap + 2
 
+    if use_native is not False:
+        Acsr = sps.csr_matrix(adj, copy=True)
+        Acsr.data[:] = 1
+        Acsr = ((Acsr + Acsr.T) > 0).astype(np.int8).tocsr()
+        native = _topology_native(Acsr, membership0, overlap, cap)
+        if native is not None:
+            TOPOLOGY_ROUTES["native"] += 1
+            return _pack_topology(native, dof_owner, n, n_sub, overlap, cap,
+                                  pad_to)
+        if use_native:
+            from .._native import error
+
+            raise RuntimeError(
+                f"native ddmcore requested but unavailable: {error}")
+    TOPOLOGY_ROUTES["python"] += 1
     A = sps.csr_matrix(adj, copy=True)
     A.data[:] = 1
     A = ((A + A.T + sps.eye(n, format="csr")) > 0).astype(np.int8)
@@ -208,7 +270,6 @@ def build_topology(
 
     # boundary distance within each subdomain (cap mirrors the reference's
     # 4*overlap relaxation rounds, pou.hh:106)
-    cap = 4 * overlap + 2
     visited = B.copy().astype(bool).tocsr()
     frontier = visited.copy()
     dist_mat = sps.csr_matrix((n_sub, n), dtype=np.int32)

@@ -10,6 +10,7 @@ general layout of :func:`build_topology`.
 from __future__ import annotations
 
 import numpy as np
+import scipy.sparse as sps
 
 from ..fem.discretize import Discretization
 from .indexmaps import (
@@ -50,9 +51,19 @@ def setup_topology(
     """Build the overlapping DDM topology.  Returns (topology, elem_part)."""
     if elem_part is None:
         elem_part = partition_elements(disc, n_sub=n_sub, parts=parts)
-    n_parts = int(elem_part.max()) + 1
+    topo = build_topology(*topology_inputs(disc, elem_part), overlap,
+                          pad_to=pad_to)
+    return topo, elem_part
+
+
+def topology_inputs(
+    disc: Discretization, elem_part: np.ndarray
+) -> tuple[sps.csr_matrix, sps.csr_matrix, np.ndarray]:
+    """The inputs of :func:`build_topology` for the element partition
+    ``elem_part``: (dof adjacency, non-overlapping dof membership, owning
+    subdomain of each dof)."""
     dofs = disc.dof_tuples()
+    n_parts = int(elem_part.max()) + 1
     M0 = dof_membership_from_elems(dofs, elem_part, disc.n_dofs, n_parts)
     owner = dof_owner_lowest(dofs, elem_part, disc.n_dofs)
-    topo = build_topology(disc.adjacency(), M0, owner, overlap, pad_to=pad_to)
-    return topo, elem_part
+    return disc.adjacency(), M0, owner

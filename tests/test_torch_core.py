@@ -147,7 +147,8 @@ def test_sum_plan_scatter_add():
 def test_import_leaves_jax_out():
     code = (
         "import sys, ddm_tpu_torch.api, ddm_tpu_torch.convert, "
-        "ddm_tpu_torch.kernels.build, ddm_tpu_torch.precond.two_level\n"
+        "ddm_tpu_torch.kernels.build, ddm_tpu_torch.precond.two_level, "
+        "ddm_tpu_torch.bench, ddm_tpu_torch._native\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert 'ddm_tpu' not in sys.modules, 'ddm_tpu imported'\n"
     )
