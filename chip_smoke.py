@@ -186,9 +186,20 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    CUDA-event
    timings (and, for the ring paths, the f64 and dd fine-level apply
    times), each with its launch plan, its share of the bound
-   and, as a reference line over the same bytes, the f64 cuBLAS matvec of
-   the f64 inverse hi + lo (``f64_library_ms``; it computes a different
-   function, so ``library_ms`` stays null);
+   and the library call that computes the same product, one ``torch.bmm``
+   (cuBLAS) of the f64 inverse hi + lo, summed and stored once over the
+   same bytes (``library_ms``);
+   Then three checks of the pieces that complete the port's parity with
+   the JAX package: ``ring_dd`` through ``build_two_level(p, fine=)`` with
+   a Schwarz level built once (phase 5's count, its solution bit-equal to
+   ``build_two_level(p)`` on the same problem, one ``Schwarz/factorise``
+   scope); ``obs.logger.profile_trace`` around one warm ``ring_dd`` solve
+   (the Chrome trace it writes under ``build/traces`` must hold as many
+   ``dd_matvec`` kernel events as the wrapper counts launches in that
+   window; the five device ops that took the most time are printed); and
+   ``factor_batched(A)`` at its default (LU, inverse on the card) on a
+   nonsymmetric batch at (144, 1280, 1280), its solve within 1e-10 of
+   ``torch.linalg.solve``;
 7. sharded — ``ring_dd`` at islands 384^2 / 256 on four ranks of one
    process group, spawned by this script (``spawn`` start method, a
    ``file://`` rendezvous, a 300 s collective timeout): NCCL with one rank
@@ -210,10 +221,13 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    process with a timeout (BENCH_TIMEOUT_S), its JSON line printed after
    ``bench:``: islands 384^2 / 256, geneo_ring nev 8 in f64, warm build +
    solve, then full geneo, then the two CPU baselines (forked workers and
-   sequential SuperLU + LAPACK GEVPs).  geneo_ring must take at most 17
-   iterations and geneo 18, all four runs must reach a true relative
-   residual <= 1e-7, and the two baselines must converge within one
-   iteration of each other.
+   sequential SuperLU + LAPACK GEVPs, on the problem the host builds).
+   geneo_ring must take at most 17 iterations and geneo 18, all four runs
+   must reach a true relative residual <= 1e-7, and the two baselines must
+   converge within one iteration of each other; then the bench's
+   elasticity variant at 64^2 / 16 (``DDM_BENCH_PROBLEM=elasticity``,
+   full GenEO): at most 47 + 2 iterations on the card and both baselines
+   within one of the JAX package's 55.
 
 Then one JSON line of per-kernel results, the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}.
@@ -222,8 +236,9 @@ last line {"ok": true, "device": {...}}.
 
 profiles full-size paths instead (default: the three 2-D ones; the six
 example paths by name too): one run to warm
-up, then one under ``torch.profiler`` with CPU and CUDA activity, a window
-per entry point (``setup_problem``, ``build_preconditioner``, ``solve``),
+up, then one under ``obs.logger.profile_trace`` (``torch.profiler`` with
+CPU and CUDA activity; a Chrome trace per window under ``build/traces``), a
+window per entry point (``setup_problem``, ``build_preconditioner``, ``solve``),
 each printed with its wall seconds, device-busy seconds (the union of the
 card's kernel and copy intervals), idle share 1 - busy / wall and the
 device ops that took the most time.
@@ -258,6 +273,18 @@ with the most time of their own.
     python3 chip_smoke.py --bench
 
 runs phase 8 alone.
+
+    python3 chip_smoke.py --parity
+
+runs ``ring_dd`` at full size and then the three parity checks of phase 5.
+
+    python3 chip_smoke.py --baseline-diag
+
+runs the bench's elasticity variant with the problem on the host CPU
+(``bench.main(device="cpu")``), then prints the BLAS and LAPACK libraries
+(threadpoolctl, else ``numpy.show_config()``) and, per subdomain, the
+singular values of the sequential baseline's kept GenEO vectors and each
+vector's part outside the rigid-body span.
 
     python3 chip_smoke.py --plans
 
@@ -1209,14 +1236,15 @@ def time_kernel(ddmatvec, path, precs, shapes, flush_buf, gen,
         print(f"kernel {path} {label} {tuple(hi.shape)} [{plan_str(pl)}]: "
               f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
               f"({b_by}), {b_ms / ms:.3f} of the bound, "
-              f"{8 * n_sub * P * P / ms / 1e6:.0f} GB/s of hi+lo; f64 cuBLAS "
-              f"matvec of hi + lo (reference) {f64_ms:.4f} ms", flush=True)
+              f"{8 * n_sub * P * P / ms / 1e6:.0f} GB/s of hi+lo; library "
+              f"call (torch.bmm of the f64 hi + lo) {f64_ms:.4f} ms",
+              flush=True)
         entries.append({
             "path": path, "shape": [n_sub, P, P],
             "launches": shapes[(n_sub, P, P)],
             "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "share_of_bound": b_ms / ms, "f64_library_ms": f64_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": f64_ms,
+            "share_of_bound": b_ms / ms,
             "plan": pl._asdict(),
         })
     return entries
@@ -1242,17 +1270,18 @@ def device_busy(prof):
 
 
 def profiled(label, fn, top=8):
-    """Run ``fn`` under the profiler; print its wall and device-busy
-    seconds, its idle share 1 - busy / wall and its top device ops."""
-    from torch.profiler import ProfilerActivity, profile
+    """Run ``fn`` under ``obs.logger.profile_trace`` (its Chrome trace goes
+    to TRACE_DIR); print its wall and device-busy seconds, its idle share
+    1 - busy / wall and its top device ops."""
+    from ddm_tpu_torch.obs.logger import profile_trace
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile_trace(TRACE_DIR) as tr:
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy, by_name = device_busy(prof)
+    busy, by_name = device_busy(tr.prof)
     print(f"  {label}: wall {wall:.4f} s, device busy {busy:.4f} s, idle share "
           f"{1.0 - busy / wall:.3f}", flush=True)
     for name, sec in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
@@ -1865,10 +1894,26 @@ BENCH_MAX_ITERS = {"iters": MAX_ITERS["ring_f64"],
 BENCH_TRUE_RES_MAX = 1e-7
 
 
-def run_bench():
+# phase 8 also runs the bench's elasticity variant at 64^2 / 16 (steel-rubber
+# strip, full GenEO nev 8, flexible GMRES): the JAX package's device path
+# takes 47 iterations there and its sequential CPU baseline 55 (both on the
+# CPU, bench.py's functions); the port's two baselines, on the problem the
+# host builds, must take 55 within one
+ELAST_BENCH_ENV = {"DDM_BENCH_PROBLEM": "elasticity",
+                   "DDM_BENCH_GRIDSIZE": "64", "DDM_BENCH_PARTS": "4"}
+ELAST_BENCH_MAX_ITERS = 47 + 2
+ELAST_JAX_BASELINE_ITERS = 55
+
+
+def run_bench(env=None):
     """Phase 8: the benchmark entry point as a user runs it, a fresh
-    process with a timeout; prints its JSON line prefixed ``bench:`` and
-    its summary lines, and raises unless the counts and residuals hold."""
+    process with a timeout, at its defaults or with the ``DDM_BENCH_*``
+    variables of ``env``; prints its JSON line prefixed ``bench:`` and its
+    summary lines, and raises unless the counts and residuals hold: at the
+    defaults BENCH_MAX_ITERS and the two baselines within one iteration of
+    each other, for the elasticity variant ELAST_BENCH_MAX_ITERS on the
+    card and both baselines within one of the JAX package's
+    ELAST_JAX_BASELINE_ITERS.  Returns its wall seconds."""
     import json as json_mod
 
     if torch.cuda.is_initialized():
@@ -1877,33 +1922,227 @@ def run_bench():
     t0 = time.perf_counter()
     proc = subprocess.run(
         BENCH_CMD, cwd=os.path.dirname(os.path.abspath(__file__)),
-        capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+        capture_output=True, text=True, timeout=BENCH_TIMEOUT_S,
+        env={**os.environ, **(env or {})})
     wall = time.perf_counter() - t0
+    tag = "bench" if not env else "bench " + ",".join(
+        f"{k.removeprefix('DDM_BENCH_').lower()}={v}" for k, v in env.items())
     for line in proc.stderr.splitlines():
         if line.startswith(("device", "host setup", "cpu ")):
-            print(f"bench log: {line}", flush=True)
+            print(f"{tag} log: {line}", flush=True)
     lines = proc.stdout.splitlines()
     if proc.returncode != 0 or len(lines) != 1:
         print(proc.stderr[-4000:], file=sys.stderr, flush=True)
-        fail(f"python -m ddm_tpu_torch.bench exited {proc.returncode} with "
-             f"{len(lines)} lines on stdout")
-    print(f"bench: {lines[0]}", flush=True)
+        fail(f"python -m ddm_tpu_torch.bench ({tag}) exited "
+             f"{proc.returncode} with {len(lines)} lines on stdout")
+    print(f"{tag}: {lines[0]}", flush=True)
     out = json_mod.loads(lines[0])
     seq, par = out["cpu_sequential_baseline"], out["cpu_parallel_baseline"]
-    res = [out["true_rel_res"], out["true_rel_res_geneo"],
+    res = [out["true_rel_res"], out.get("true_rel_res_geneo"),
            seq["true_rel_res"], par["true_rel_res"]]
-    print(f"bench: {wall:.1f} s in all; geneo_ring {out['iters']} its "
-          f"(limit {BENCH_MAX_ITERS['iters']}), geneo {out['iters_geneo']} "
-          f"(limit {BENCH_MAX_ITERS['iters_geneo']}), CPU sequential "
-          f"{seq['iters']}, parallel {par['iters']} ({par['workers']} "
-          f"workers, {out['cpu_count']} cores); true rel residuals "
-          + ", ".join(f"{r:.3e}" for r in res)
+    elast = bool(env) and env.get("DDM_BENCH_PROBLEM") == "elasticity"
+    limits = ({"iters": ELAST_BENCH_MAX_ITERS} if elast else BENCH_MAX_ITERS)
+    head = ("geneo" if elast else "geneo_ring")
+    like4like = ("" if "iters_geneo" not in out
+                 else f"geneo {out['iters_geneo']} (limit "
+                      f"{limits['iters_geneo']}), ")
+    print(f"{tag}: {wall:.1f} s in all; {head} {out['iters']} its "
+          f"(limit {limits['iters']}), {like4like}CPU "
+          f"sequential {seq['iters']}, parallel {par['iters']} "
+          f"({par['workers']} workers, {out['cpu_count']} cores)"
+          + (f" (the JAX package's sequential baseline: "
+             f"{ELAST_JAX_BASELINE_ITERS})" if elast else "")
+          + "; true rel residuals "
+          + ", ".join(f"{r:.3e}" for r in res if r is not None)
           + f" (limit {BENCH_TRUE_RES_MAX:g})", flush=True)
-    if not (all(out[k] <= v for k, v in BENCH_MAX_ITERS.items())
-            and all(r <= BENCH_TRUE_RES_MAX for r in res)
+    if not (all(out[k] <= v for k, v in limits.items())
+            and all(r <= BENCH_TRUE_RES_MAX for r in res if r is not None)
             and seq["converged"] and par["converged"]
-            and abs(seq["iters"] - par["iters"]) <= 1):
-        fail("the benchmark's counts or residuals are over their limits")
+            and (abs(seq["iters"] - par["iters"]) <= 1 if not elast else
+                 all(abs(b["iters"] - ELAST_JAX_BASELINE_ITERS) <= 1
+                     for b in (seq, par)))):
+        fail(f"the benchmark's counts or residuals ({tag}) are over their "
+             "limits")
+    return wall
+
+
+# the default-LU check: factor_batched(A) at the DG fine shape
+DEFAULT_LU_SHAPE = (144, 1280, 1280)
+DEFAULT_LU_TOL = 1e-10
+TRACE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "traces")
+
+
+def check_two_level_fine(dev, ring_iterations):
+    """``ring_dd`` at full size through ``build_two_level(p, fine=)`` with
+    a Schwarz level built once beforehand, against ``build_two_level(p)``
+    on the same problem in this process: phase 5's iteration count, a
+    bit-equal solution, the given level reused, and one
+    ``Schwarz/factorise`` scope in all.  Returns (problem, preconditioner)
+    for the trace check."""
+    from ddm_tpu_torch import api
+    from ddm_tpu_torch.obs.logger import Logger
+    from ddm_tpu_torch.precond.schwarz import build_schwarz
+    from ddm_tpu_torch.precond.two_level import build_two_level
+
+    size, parts = FULL["islands"]
+    p = path_problem(api, "ring_dd", size, parts, dev)
+    M0 = build_two_level(p)
+    res0 = api.solve(p, M0)
+    del M0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    Logger.reset()
+    t0 = time.perf_counter()
+    fine = build_schwarz(p.A, p.topo, p.pou, p.ptree)
+    M = build_two_level(p, fine=fine)
+    res = api.solve(p, M)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    builds = Logger.get().events[("Schwarz", "factorise")].count
+    same = torch.equal(res.x, res0.x)
+    print(f"ring_dd through build_two_level(p, fine=): {res.iterations} its "
+          f"(phase 5: {ring_iterations}, fine=None here: {res0.iterations}), "
+          f"solution bit-equal to fine=None: {same}, Schwarz/factorise "
+          f"scopes {builds}, fine level reused: {M.precs[0] is fine}, "
+          f"build + solve {secs:.3f} s", flush=True)
+    if not (res.converged and res.iterations == ring_iterations
+            and res0.iterations == ring_iterations and same and builds == 1
+            and M.precs[0] is fine):
+        fail("build_two_level(p, fine=) differs from the fine=None build")
+    return p, M
+
+
+def check_profile_trace(p, M):
+    """``obs.logger.profile_trace`` around one warm solve of ``p`` with
+    ``M`` (``ring_dd``): the Chrome trace it writes under TRACE_DIR must
+    hold as many ``dd_matvec`` kernel events as the wrapper counted
+    launches in the same window; prints the five device ops that took the
+    most time."""
+    from ddm_tpu_torch import api
+    from ddm_tpu_torch.kernels import ddmatvec
+    from ddm_tpu_torch.obs.logger import profile_trace
+
+    api.solve(p, M)
+    torch.cuda.synchronize()
+    ddmatvec.dd_matvec_cuda.shapes.clear()
+    t0 = time.perf_counter()
+    with profile_trace(TRACE_DIR) as tr:
+        res = api.solve(p, M)
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    shapes = dict(ddmatvec.dd_matvec_cuda.shapes)
+    with open(tr.path) as f:
+        events = json.load(f)["traceEvents"]
+    device = [e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    n_events = sum(1 for e in device if e["cat"] == "kernel"
+                   and "dd_matvec_kernel" in e.get("name", ""))
+    by_name = {}
+    for e in device:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] / 1e3
+    print(f"profile_trace around one warm ring_dd solve ({res.iterations} "
+          f"its, {secs:.3f} s with the trace written to "
+          f"{os.path.relpath(tr.path)}): dd_matvec kernel events "
+          f"{n_events}, wrapper launches {sum(shapes.values())} by shape "
+          f"{shapes}; top device ops:", flush=True)
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:5]:
+        print(f"    {ms:.4f} ms  {name[:110]}", flush=True)
+    if not (n_events == sum(shapes.values()) > 0 and len(shapes) == 2):
+        fail("the trace's dd_matvec events differ from the launch count")
+
+
+def parity_checks(dev, gen, ring_iterations):
+    """The checks of the pieces that complete the port's parity with the
+    JAX package, on the card: ``build_two_level(p, fine=)`` and
+    ``profile_trace`` on ``ring_dd`` at full size, then the default
+    ``factor_batched``."""
+    p, M = check_two_level_fine(dev, ring_iterations)
+    check_profile_trace(p, M)
+    del p, M
+    torch.cuda.empty_cache()
+    check_default_lu(dev, gen)
+
+
+def check_default_lu(dev, gen):
+    """``factor_batched(A)`` at its default solver (LU) and mode (inverse
+    on the card) on a nonsymmetric batch at DEFAULT_LU_SHAPE: its solve
+    within DEFAULT_LU_TOL (relative, per subdomain) of
+    ``torch.linalg.solve`` on the same batch."""
+    from ddm_tpu_torch.solvers.direct import BatchedInverse, factor_batched
+
+    n_sub, P, _ = DEFAULT_LU_SHAPE
+    A = torch.randn(DEFAULT_LU_SHAPE, generator=gen, device=dev,
+                    dtype=torch.float64) / P ** 0.5
+    A.diagonal(dim1=1, dim2=2).add_(2.0)  # eigenvalues in |z - 2| <~ 1
+    b = torch.randn((n_sub, P), generator=gen, device=dev, dtype=torch.float64)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fac = factor_batched(A)
+    x = fac.solve(b)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    ref = torch.linalg.solve(A, b)
+    err = float((torch.linalg.norm(x - ref, dim=1)
+                 / torch.linalg.norm(ref, dim=1)).max())
+    asym = float((A - A.mT).abs().max() / A.abs().max())
+    print(f"factor_batched(A) at its defaults on a nonsymmetric card batch "
+          f"{DEFAULT_LU_SHAPE} (|A - A^T| / |A| = {asym:.2f}): "
+          f"{type(fac).__name__}, factor + solve {secs:.3f} s, solve error "
+          f"against torch.linalg.solve {err:.3e} (limit {DEFAULT_LU_TOL:g})",
+          flush=True)
+    if not (isinstance(fac, BatchedInverse) and err <= DEFAULT_LU_TOL
+            and asym > 1e-2):
+        fail("the default factor_batched does not solve a nonsymmetric batch")
+
+
+def baseline_diag():
+    """The bench's elasticity variant (ELAST_BENCH_ENV) with the problem on
+    this host's CPU (``bench.main(device="cpu")``), then in the same
+    process the BLAS and LAPACK libraries (threadpoolctl, else numpy's
+    build configuration) and, for each subdomain, the singular values of
+    the sequential baseline's kept GenEO vectors (each of unit norm) and
+    each vector's part outside the span of the subdomain's rigid-body
+    modes (in the equilibrated, POU-scaled variables of the vectors)."""
+    import numpy as np
+    import scipy
+
+    from ddm_tpu_torch import bench
+    from ddm_tpu_torch.coarse.pou_space import rigid_body_modes
+
+    os.environ.update(ELAST_BENCH_ENV)
+    out = bench.main([], device="cpu")
+    print(f"elasticity 64^2/16 on the CPU: device path {out['iters']} its, "
+          f"CPU sequential {out['cpu_sequential_baseline']['iters']}, "
+          f"parallel {out['cpu_parallel_baseline']['iters']} (the JAX "
+          f"package's sequential baseline: {ELAST_JAX_BASELINE_ITERS})",
+          flush=True)
+    print(f"numpy {np.__version__}, scipy {scipy.__version__}", flush=True)
+    try:
+        import threadpoolctl
+    except ImportError:
+        np.show_config()
+    else:
+        for lib in threadpoolctl.threadpool_info():
+            print(f"threadpoolctl: {lib['user_api']} {lib['internal_api']} "
+                  f"{lib.get('version')} ({lib['num_threads']} threads) "
+                  f"{lib['filepath']}", flush=True)
+    nev = int(os.environ.get("DDM_BENCH_NEV", "8"))
+    p = bench.build_problem(int(ELAST_BENCH_ENV["DDM_BENCH_GRIDSIZE"]),
+                            int(ELAST_BENCH_ENV["DDM_BENCH_PARTS"]), 2, nev,
+                            device="cpu")
+    A_neu, C = bench._baseline_gevp_mats(p)
+    rigid = np.stack(rigid_body_modes(p.disc.grid.nodes, 2), axis=1)
+    scale = p.scale.numpy()
+    for k in range(p.topo.n_sub):
+        ids, pou, Ak, Ck = bench._subdomain_blocks(p, A_neu, C, k)
+        W = bench._geneo_vectors(Ak, Ck, pou, nev)
+        Q, _ = np.linalg.qr(pou[:, None] * rigid[ids] / scale[ids, None])
+        outside = np.linalg.norm(W - Q @ (Q.T @ W), axis=0)
+        sv = np.linalg.svd(W, compute_uv=False)
+        print(f"subdomain {k}: singular values of the kept vectors "
+              f"{sv.min():.4f}-{sv.max():.4f}; part outside the rigid span "
+              + " ".join(f"{v:.3f}" for v in outside), flush=True)
 
 
 SETUP_PROFILE_FNS = ("build_topology", "setup_topology", "assembly_plan",
@@ -2219,12 +2458,22 @@ def main():
     if not (TOPOLOGY_ROUTES["native"] > 0 and TOPOLOGY_ROUTES["python"] == 0):
         fail("a phase 5 path built its topology on the scipy route")
 
-    # -- 7. sharded: ring_dd over SHARDED_RANKS ranks --------------------
+    # -- ring_dd through build_two_level(fine=) and under profile_trace;
+    # factor_batched at its default ------------------------------------
     del flush_buf
+    t0 = time.perf_counter()
+    parity_checks(dev, gen, ring_ref["iterations"])
+    print(f"phase 5 parity checks: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # -- 7. sharded: ring_dd over SHARDED_RANKS ranks --------------------
     entries += run_sharded(ring_ref, launches)
 
-    # -- 8. bench: python -m ddm_tpu_torch.bench at its defaults ---------
-    run_bench()
+    # -- 8. bench: python -m ddm_tpu_torch.bench at its defaults, then its
+    # elasticity variant -----------------------------------------------
+    for env in (None, ELAST_BENCH_ENV):
+        print(f"phase 8 bench{' ' + str(env) if env else ''}: "
+              f"{run_bench(env):.1f} s", flush=True)
 
     # top-level numbers: the ring_dd path at its fine shape (the first
     # entry); every path's shapes stand in "shapes", each path's total over
@@ -2261,6 +2510,15 @@ if __name__ == "__main__":
     elif sys.argv[1:2] == ["--setup-profile"]:
         setup_profile()
     elif sys.argv[1:2] == ["--bench"]:
-        run_bench()
+        for bench_env in (None, ELAST_BENCH_ENV):
+            run_bench(bench_env)
+    elif sys.argv[1:2] == ["--baseline-diag"]:
+        baseline_diag()
+    elif sys.argv[1:2] == ["--parity"]:
+        dev0 = torch.device("cuda", 0)
+        size0, parts0 = FULL["islands"]
+        parity_checks(dev0, torch.Generator(device=dev0).manual_seed(0),
+                      run_path("ring_dd", size0, parts0, dev0)[
+                          "res"].iterations)
     else:
         main()

@@ -29,12 +29,14 @@ _lib: ctypes.CDLL | None = None
 error: str | None = None
 
 
-def build() -> Path:
-    """Compile ``ddmcore.cpp`` unless an up-to-date library exists; returns
-    its path.  The compiler writes a temporary file that is renamed into
-    place, so processes that build at once never load half a file.  Raises
-    ``RuntimeError`` when g++ fails or is missing."""
-    if LIB.exists() and LIB.stat().st_mtime >= SRC.stat().st_mtime:
+def build(force: bool = False) -> Path:
+    """Compile ``ddmcore.cpp`` unless an up-to-date library exists (always
+    with ``force``); returns its path.  The compiler writes a temporary
+    file that is renamed into place, so processes that build at once never
+    load half a file.  Raises ``RuntimeError`` when g++ fails or is
+    missing."""
+    if (not force and LIB.exists()
+            and LIB.stat().st_mtime >= SRC.stat().st_mtime):
         return LIB
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)

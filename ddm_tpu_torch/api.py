@@ -99,8 +99,8 @@ def setup_problem(
     grid=None,
     n_sub: int | None = None,
     parts: tuple[int, ...] | None = None,
-    device=None,
     n_comp: int = 1,
+    device=None,
 ) -> DDMProblem:
     """Grid, discretization, topology and POU per config, on ``device``
     (default: the CUDA card, see :func:`default_device`).  ``n_comp`` > 1

@@ -21,7 +21,13 @@ vs_baseline = best CPU seconds / value.  The CPU baselines run the
               with two-level applies, once with forked worker processes
               standing in for MPI ranks and once sequentially.  dune-ddm
               publishes no numbers of its own (BASELINE.md), so this
-              emulation is the baseline.
+              emulation is the baseline.  The baselines run on the same
+              problem built by the host CPU (system, equilibration and
+              Neumann matrices), as the reference assembles on the CPU,
+              untimed: the card's matrices differ in the last bits, and
+              on them the elasticity variant's baselines at 64^2/16 took
+              66 and 71 iterations against 54 and 54 on the host's (an
+              H100 machine's 8-core host, OpenBLAS 0.3.30).
 
 Beside ``bench.py``'s keys (``tpu_geneo_s`` is ``device_geneo_s`` here)
 the line carries ``device`` (nvidia-smi's name and power limit, or
@@ -298,10 +304,11 @@ def _to_host(batch, pou=None):
 def _baseline_gevp_mats(p):
     """Host numpy (A_neu, C) for the CPU baselines: the port's Neumann
     matrices of the equilibrated system (region "overlap") and the
-    POU-scaled B, computed ONCE right after the problem build and cached
-    on the problem (the reference assembles them during FEM assembly, so
-    neither side is charged for them).  At 3-D 56^3/512 (n_pad 1728) each
-    batch is 12.2 GB: they move to the host slab by slab."""
+    POU-scaled B of ``p`` (the host-built problem), computed ONCE right
+    after the problem build and cached on the problem (the reference
+    assembles them during FEM assembly, so neither side is charged for
+    them).  At 3-D 56^3/512 (n_pad 1728) each batch is 12.2 GB: they move
+    into numpy slab by slab."""
     cached = getattr(p, "_baseline_mats", None)
     if cached is not None:
         return cached
@@ -538,11 +545,16 @@ def main(argv=None, device=None):
     p = build_problem(gridsize, parts, overlap, nev, dim=dim, device=device)
     _sync(device)
     host_setup_s = time.perf_counter() - t0
-    # the CPU baselines' GEVP matrices move to the host now, while device
-    # memory is empty (charged to neither side)
-    _baseline_gevp_mats(p)
     log(f"host setup: {host_setup_s:.3f}s; n={p.disc.n_dofs} "
         f"n_sub={p.topo.n_sub} n_pad={p.topo.n_pad}")
+    # the CPU baselines' problem and GEVP matrices, built by the host as the
+    # reference's are (charged to neither side)
+    t0 = time.perf_counter()
+    p_host = p if device.type == "cpu" else build_problem(
+        gridsize, parts, overlap, nev, dim=dim, device="cpu")
+    _baseline_gevp_mats(p_host)
+    log(f"cpu baselines' problem and Neumann matrices built on the host: "
+        f"{time.perf_counter() - t0:.3f}s (untimed)")
 
     dev_run = run_device(p, nev)
 
@@ -563,13 +575,13 @@ def main(argv=None, device=None):
         torch.cuda.empty_cache()
     cpu_totals = {}
     if (os.cpu_count() or 1) > 1:
-        parallel = run_cpu_baseline_parallel(p, nev)
+        parallel = run_cpu_baseline_parallel(p_host, nev)
         cpu_totals["parallel"] = (parallel["setup"] + parallel["solve"],
                                   f"{parallel['workers']} workers")
     else:
         # a 1-worker "parallel" baseline only measures IPC overhead
         parallel = "skipped: 1 core"
-    cpu_seq = run_cpu_baseline(p, nev)
+    cpu_seq = run_cpu_baseline(p_host, nev)
     cpu_totals["sequential"] = (cpu_seq["setup"] + cpu_seq["solve"], "1 core")
 
     dev_total = dev_run["setup"] + dev_run["solve"]

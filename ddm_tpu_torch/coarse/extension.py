@@ -86,19 +86,20 @@ def energy_minimal_extension(
     A: torch.Tensor,
     free_mask: torch.Tensor,
     U_bnd: torch.Tensor,
+    solver_type: str = "lu",
 ) -> torch.Tensor:
     """Extend boundary data energy-minimally into the free set (dense form).
 
     A: (n_sub, p, p) dense subdomain (Dirichlet) matrices; free_mask
     (n_sub, p); U_bnd (n_sub, nev, p) whose values OUTSIDE free_mask are the
-    Dirichlet data.  Returns (n_sub, nev, p): the data on the constraint set,
-    the extension on the free set.  Only Cholesky is ported (the JAX
-    package's default is LU)."""
+    Dirichlet data; ``solver_type`` factors the free block (an
+    ``factor_batched`` solver name).  Returns (n_sub, nev, p): the data on
+    the constraint set, the extension on the free set."""
     f = free_mask.to(torch.bool)
     Ub = torch.where(f[:, None, :], 0.0, U_bnd)
     R = -torch.einsum("spq,skq->skp", A, Ub)
     R = torch.where(f[:, None, :], R, 0.0)
-    fac = factor_batched(masked_operator(A, f), "cholesky", mode="factors")
+    fac = factor_batched(masked_operator(A, f), solver_type, mode="factors")
     Z = fac.solve(R.mT).mT
     return Ub + torch.where(f[:, None, :], Z, 0.0)
 

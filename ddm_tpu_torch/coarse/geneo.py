@@ -181,6 +181,6 @@ def geneo_coarse_space(
             A_dir, _ = dirichlet_dense(p)
             interior = valid & ~torch.as_tensor(p.topo.boundary,
                                                 device=p.device)
-            V = energy_minimal_extension(A_dir, interior, V)
+            V = energy_minimal_extension(A_dir, interior, V, "cholesky")
             V = torch.where(active[:, :, None], V, 0.0)
     return finalize_basis(V, pou, valid, active)

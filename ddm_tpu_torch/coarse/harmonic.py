@@ -40,7 +40,8 @@ def harmonic_extension_coarse_space(p, ptree: ParamTree) -> CoarseBasis:
     data = torch.as_tensor(
         local_rows(rng.normal(size=(n_full, nev, topo.n_pad))), device=device)
     data = torch.where(boundary[:, None, :], data, 0.0)
-    V = energy_minimal_extension(A_dir, valid & ~boundary, data)
+    V = energy_minimal_extension(A_dir, valid & ~boundary, data,
+                                 "cholesky")
     V = torch.where(valid[:, None, :], V, 0.0)
     active = torch.ones((topo.n_sub, nev), dtype=torch.bool, device=device)
     pou = torch.as_tensor(p.pou, dtype=torch.float64, device=device)

@@ -74,13 +74,16 @@ def lobpcg_gevp(
     C: torch.Tensor,
     X0: torch.Tensor,
     prec_inv: torch.Tensor | None = None,
+    m: int | None = None,
     maxit: int = 50,
     tol: float = 1e-6,
 ):
     """Batched LOBPCG.
 
     A, C: (n_sub, p, p); X0: (n_sub, p, m) start block; prec_inv: optional
-    (n_sub, p, p) preconditioner (approximate A^{-1}).  Returns (lam
+    (n_sub, p, p) preconditioner (approximate A^{-1}); ``m``: the block
+    width, X0's when None (any other width raises ``ValueError``: the
+    iteration keeps the start block's width).  Returns (lam
     (n_sub, m) ascending, V (n_sub, m, p), residual norms (n_sub, m),
     iterations taken).
 
@@ -90,7 +93,10 @@ def lobpcg_gevp(
     improving (LOBPCG without soft locking degrades when iterated past
     convergence); each subdomain then returns the better of its best and
     its last iterate."""
-    n_sub, p, m = X0.shape
+    n_sub, p, width = X0.shape
+    if m is not None and m != width:
+        raise ValueError(f"m = {m} is not the start block's width {width}")
+    m = width
     eps = _eps(A.dtype)
     # regularize A exactly like the dense path: keeps the metric SPD on
     # floating (Neumann-singular) subdomains

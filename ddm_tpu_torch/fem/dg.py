@@ -154,12 +154,20 @@ class _DGBase:
         """(n_dofs, 2) coordinates of each DG dof (element vertices)."""
         return self.grid.nodes[self.grid.elems].reshape(-1, 2)
 
-    def _volume(self, p: Problem):
-        """Volume element blocks (convection in divergence form) and the
-        load vector: each dof belongs to one element, so b = fe."""
-        Ke, fe = assemble_convection_diffusion(
+    def element_matrices(self, problem: Problem | None = None):
+        """Volume element blocks (convection in divergence form) and element
+        loads (Ke, fe) of ``problem`` (default: the discretization's own),
+        without the boundary and face terms that :meth:`neumann_stamps`
+        adds."""
+        p = problem or self.problem
+        return assemble_convection_diffusion(
             self.quad, self.xe, p.alpha, p.b, p.c, p.f,
             convection_divergence_form=True)
+
+    def _volume(self, p: Problem):
+        """Volume element blocks and the load vector: each dof belongs to
+        one element, so b = fe."""
+        Ke, fe = self.element_matrices(p)
         return Ke, fe.reshape(-1).clone()
 
     def _add_boundary(self, Ke, b, eb, rounds, Kb, rb):
@@ -181,8 +189,8 @@ class _DGBase:
         A, b = self.assemble(problem)
         return A, b, torch.zeros_like(b)
 
-    def _stamp_problem(self) -> Problem:
-        p = self.problem
+    def _stamp_problem(self, problem: Problem | None) -> Problem:
+        p = problem or self.problem
         return p.symmetrized() if getattr(p, "symmetric", True) is False else p
 
 
@@ -349,11 +357,12 @@ class DGDiscretization(_DGBase):
         Kh = self._interior_face_blocks(p, "h", alpha_c)
         return Ke, Kv, Kh, b
 
-    def neumann_stamps(self):
-        """Stamp groups: volume + boundary blocks on element dofs, then the
-        vertical and the horizontal face blocks on both elements' dofs; a
-        nonsymmetric problem stamps its symmetrized operator."""
-        Ke, Kv, Kh, _ = self.assemble_parts(self._stamp_problem())
+    def neumann_stamps(self, problem: Problem | None = None):
+        """Stamp groups of ``problem`` (default: the discretization's own):
+        volume + boundary blocks on element dofs, then the vertical and the
+        horizontal face blocks on both elements' dofs; a nonsymmetric
+        problem stamps its symmetrized operator."""
+        Ke, Kv, Kh, _ = self.assemble_parts(self._stamp_problem(problem))
         d = self.dof_tuples()
         groups = [(d, Ke)]
         for (em, ep), K in zip(self._families.values(), (Kv, Kh)):
@@ -545,9 +554,10 @@ class SimplexDGDiscretization(_DGBase):
                            Kb, rb)
         return Ke, self._interior_face_blocks(p, alpha_c), b
 
-    def neumann_stamps(self):
-        """Stamp groups: volume + boundary blocks on element dofs, then the
-        face blocks on both elements' dofs (symmetrized operator for a
-        nonsymmetric problem)."""
-        Ke, Kf, _ = self.assemble_parts(self._stamp_problem())
+    def neumann_stamps(self, problem: Problem | None = None):
+        """Stamp groups of ``problem`` (default: the discretization's own):
+        volume + boundary blocks on element dofs, then the face blocks on
+        both elements' dofs (symmetrized operator for a nonsymmetric
+        problem)."""
+        Ke, Kf, _ = self.assemble_parts(self._stamp_problem(problem))
         return [(self.dof_tuples(), Ke), (self._face_dofs(), Kf)]

@@ -124,16 +124,19 @@ class Discretization:
             self._Ke = out
         return out
 
-    def assemble(self) -> tuple[SparseELL, torch.Tensor]:
-        """Unconstrained global (A, b)."""
-        Ke, fe = self.element_matrices()
+    def assemble(self, problem=None) -> tuple[SparseELL, torch.Tensor]:
+        """Unconstrained global (A, b) of ``problem`` (default: the
+        discretization's own) on this discretization's pattern."""
+        Ke, fe = self.element_matrices(problem)
         A = self.pattern.assemble(Ke.reshape(-1), self._matrix_plan)
         b = self._rhs_plan.scatter(fe, self.n_dofs)
         return A, b
 
-    def constrained_system(self):
-        """(A_c, rhs, g) with symmetric Dirichlet elimination."""
-        A, b = self.assemble()
+    def constrained_system(self, problem=None):
+        """(A_c, rhs, g) of ``problem`` (default: the discretization's own)
+        with symmetric Dirichlet elimination; the Dirichlet dofs and data
+        are the discretization's own problem's."""
+        A, b = self.assemble(problem)
         g = self.dirichlet_values
         rhs = torch.where(self.dirichlet_mask, 0.0, b - A.mv(g))
         return eliminate_dirichlet(A, self.dirichlet_mask), rhs, g
@@ -151,12 +154,13 @@ class Discretization:
         that is already symmetric."""
         return getattr(self.problem, "symmetric", True) is not False
 
-    def neumann_stamps(self):
-        """Assembly stamps for subdomain Neumann matrices: one group of
-        (dof tuples (n_e, nl) host, element matrices (n_e, nl, nl)).  A
-        nonsymmetric problem stamps its symmetrized (elliptic) operator,
-        as the two-operator machinery of generic_ddm_problem.hh:169-220."""
-        p = self.problem
+    def neumann_stamps(self, problem=None):
+        """Assembly stamps for subdomain Neumann matrices of ``problem``
+        (default: the discretization's own): one group of (dof tuples
+        (n_e, nl) host, element matrices (n_e, nl, nl)).  A nonsymmetric
+        problem stamps its symmetrized (elliptic) operator, as the
+        two-operator machinery of generic_ddm_problem.hh:169-220."""
+        p = problem or self.problem
         if getattr(p, "symmetric", True) is False:
             p = p.symmetrized()
         Ke, _ = self.element_matrices(p)

@@ -157,6 +157,11 @@ class Logger:
         ev.record(time.perf_counter() - ev._start)
         ev._start = None
 
+    # the reference's camel-case names, as in the JAX package
+    registerOrGetEvent = register_or_get_event
+    startEvent = start_event
+    endEvent = end_event
+
     def report(self, stream=None) -> str:
         """Table of total/mean/min/max seconds and call counts, grouped by
         family in first-registration order."""
@@ -216,6 +221,44 @@ class ScopedLog:
 
 def scoped(family: str, name: str, device=None) -> ScopedLog:
     return ScopedLog(Logger.get().register_or_get_event(family, name), device)
+
+
+class profile_trace:
+    """Context manager around ``torch.profiler.profile``: a device-level
+    trace beside the host-side event tree.  It records CPU activity, and
+    CUDA activity when CUDA is available; on exit it writes the trace as a
+    Chrome trace ``trace_<pid>_<ns>.json`` into ``log_dir`` (made if
+    missing) and keeps its path in ``path`` and the profiler in ``prof``
+    (for ``prof.key_averages()`` or ``prof.events()``).  A profiler that
+    does not start raises::
+
+        with profile_trace("build/trace") as tr:
+            solve(...)
+        print(tr.path)
+    """
+
+    def __init__(self, log_dir: str):
+        self.log_dir = log_dir
+        self.prof = None
+        self.path = None
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(ProfilerActivity.CUDA)
+        self.prof = profile(activities=acts)
+        self.prof.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.prof.__exit__(*exc)
+        os.makedirs(self.log_dir, exist_ok=True)
+        self.path = os.path.join(
+            self.log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
+        self.prof.export_chrome_trace(self.path)
+        return False
 
 
 def warn(fmt: str, *args) -> None:

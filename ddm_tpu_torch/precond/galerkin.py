@@ -205,13 +205,17 @@ def build_galerkin(
     basis: CoarseBasis,
     ptree: ParamTree | None = None,
     subtree_name: str = "coarse_solver",
-    method: str = "pairs",
+    method: str = "global",
+    A_sub: torch.Tensor | None = None,
 ) -> GalerkinPreconditioner:
-    """Coarse matrix + factorization.  ``method``: ``pairs`` (exact for
-    boundary-vanishing bases), ``global`` (always exact) or ``local`` (the
-    reference's formula on the dense subdomain matrices).  Config keys (subtree
+    """Coarse matrix + factorization.  ``method``: ``global`` (always
+    exact), ``pairs`` (exact for boundary-vanishing bases) or ``local`` (the
+    reference's formula on the dense subdomain matrices).  ``A_sub``: the
+    dense subdomain batch that ``pairs`` and ``local`` read (the rank's
+    slab under ``setup_sharding``), extracted from ``ell`` when None.
+    Config keys (subtree
     ``coarse_solver``): ``type`` (mandatory; cholesky / cholmod / lu /
-    umfpack / superlu; with ``ptree`` None, cholesky), ``refine``
+    umfpack / superlu; with ``ptree`` None, lu), ``refine``
     (iterative-refinement steps per coarse solve, default 2).
     ``precision`` = f64|dd: dd stores an explicit coarse inverse
     (``BatchedInverse``, the CUDA default) as a double-single pair applied by
@@ -226,7 +230,7 @@ def build_galerkin(
     activity masks of all ranks, computes its slab's rows (``global``) or
     columns (``pairs``, ``local``) of E and gathers the rest, so every rank
     holds the single-device E and factors it itself."""
-    ptree = ptree or ParamTree({subtree_name: {"type": "cholesky"}})
+    ptree = ptree or ParamTree({subtree_name: {"type": "lu"}})
     sub = ptree.sub(subtree_name)
     if "type" not in sub:
         raise KeyError(
@@ -255,11 +259,12 @@ def build_galerkin(
             if ctx is not None:
                 E = ctx.mesh.all_gather(E)  # the slabs' rows
         else:
-            local_cols = t(extraction_map(
-                topo_l, ell.cols.cpu().numpy()).astype(np.int64))
-            A_sub = extract_subdomain_dense(ell, s2g, t(topo_l.valid),
-                                            local_cols)
-            del local_cols
+            if A_sub is None:
+                local_cols = t(extraction_map(
+                    topo_l, ell.cols.cpu().numpy()).astype(np.int64))
+                A_sub = extract_subdomain_dense(ell, s2g, t(topo_l.valid),
+                                                local_cols)
+                del local_cols
             if method == "pairs":
                 lo = ctx.lo if ctx is not None else 0
                 E = galerkin_coarse_matrix_pairs(A_sub, topo, basis,

@@ -60,14 +60,15 @@ def build_schwarz(
     ell: SparseELL,
     topo: DDMTopology,
     pou: np.ndarray | None,
-    ptree: ParamTree,
+    ptree: ParamTree | None = None,
     subtree_name: str = "schwarz",
 ) -> SchwarzPreconditioner:
     """Set up the Schwarz preconditioner on ``ell``'s device (reference
     ctor schwarz.hh:73-94).
 
     Config keys (subtree ``schwarz``): ``type`` = standard|restricted
-    (default restricted); ``subdomain_solver.type`` (mandatory; cholesky /
+    (default restricted); ``subdomain_solver.type`` (mandatory, lu with
+    ``ptree`` None; cholesky /
     cholmod, or lu / umfpack / superlu); ``subdomain_solver.precision`` =
     f64|dd|f32, where dd (a double-single inverse applied through
     kernels/ddmatvec.py) and f32 (an f32 inverse, ``SparseRefinedInverse``)
@@ -79,6 +80,8 @@ def build_schwarz(
     ignored: the inverse is always built exactly in f64.  Under
     ``setup_sharding`` everything but the scatter map is built for the
     rank's slab alone."""
+    ptree = ptree or ParamTree(
+        {subtree_name: {"subdomain_solver": {"type": "lu"}}})
     device = ell.vals.device
     ctx = active_setup()
     dual = dual_scatter_map(topo)  # of the full batch

@@ -64,20 +64,34 @@ def build_coarse_space(p, cs_type: str, ptree: ParamTree, fine=None):
 _CS_NEEDS_FINE = {"geneo_ring", "msgfem_ring"}
 
 
-def build_two_level(p):
+def build_two_level(p, fine=None):
     """p: api.DDMProblem.  Returns the combined two-level preconditioner.
-    Under ``core.mesh.setup_sharding`` the coarse space is built for the
-    rank's slab of subdomains (the builders see a problem whose topology
-    and POU are that slab), the fine level cuts its slab itself, and the
-    Galerkin build gathers what couples the slabs."""
-    from ..core.mesh import local_problem
+    ``fine``: a Schwarz level of ``p`` built already (:func:`build_schwarz`),
+    reused in place of a new one; with ``coarsespace.type = none`` it is
+    returned as it is.  Under ``core.mesh.setup_sharding`` the coarse
+    space is built for the rank's slab of subdomains (its functions see a
+    problem whose topology and POU are that slab), the fine level cuts its
+    slab itself, and the Galerkin build gathers what couples the slabs; a
+    given ``fine`` must then have been built under the same mesh, and one
+    built without it raises ``ValueError``, as ``solve_sharded`` refuses
+    such a preconditioner."""
+    from ..core.mesh import active_setup, local_problem
 
+    if fine is not None:
+        ctx = active_setup()
+        mesh = ctx.mesh if ctx is not None else None
+        if fine.mesh != mesh:
+            raise ValueError(
+                f"the fine level holds {fine.sub2glob.shape[0]} subdomains "
+                "built under another mesh: build it under the same "
+                "setup_sharding")
     ptree = p.ptree
     cs_type = ptree.sub("coarsespace").get("type", "geneo")
     if cs_type == "none":
-        return build_schwarz(p.A, p.topo, p.pou, ptree)
-    fine = (build_schwarz(p.A, p.topo, p.pou, ptree)
-            if cs_type in _CS_NEEDS_FINE else None)
+        return fine if fine is not None else build_schwarz(
+            p.A, p.topo, p.pou, ptree)
+    if fine is None and cs_type in _CS_NEEDS_FINE:
+        fine = build_schwarz(p.A, p.topo, p.pou, ptree)
     basis = build_coarse_space(local_problem(p), cs_type, ptree, fine=fine)
     coarse_ptree = ptree if "coarse_solver.type" in ptree else None
     # every coarse space built here is POU-finalized (vanishes on subdomain

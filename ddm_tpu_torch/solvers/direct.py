@@ -170,20 +170,29 @@ def pack_inverse(inv: torch.Tensor, store_dtype=None):
 SLAB_BYTES = 6 << 30  # device memory one slab's temporaries may take
 
 
-def batch_chunk_size(p: int, live_buffers: int) -> int:
-    """How many (p, p) f64 subdomain blocks go through a dense setup
-    pipeline at once when the pipeline holds ``live_buffers`` chunk-sized
-    temporaries: as many as keep them inside ``SLAB_BYTES``."""
-    return max(1, SLAB_BYTES // max(8 * p * p * live_buffers, 1))
+def batch_chunk_size(p: int, dtype_bytes: int = 8, live_buffers: int = 20,
+                     budget_bytes: int | None = None) -> int:
+    """How many (p, p) subdomain blocks of ``dtype_bytes`` per entry go
+    through a dense setup pipeline at once when the pipeline holds
+    ``live_buffers`` chunk-sized temporaries: as many as keep them inside
+    ``budget_bytes`` (default ``SLAB_BYTES``).  The JAX package's
+    ``DDM_TPU_BATCH_CHUNK`` override is not read."""
+    if budget_bytes is None:
+        budget_bytes = SLAB_BYTES
+    return max(1, budget_bytes // max(p * p * dtype_bytes * live_buffers, 1))
 
 
-def chunked_batch(fn, *arrays, chunk: int):
+def chunked_batch(fn, *arrays, chunk: int | None = None):
     """Apply the batched ``fn`` (tensors split along axis 0 -> a tuple of
-    batch-leading tensors) over slabs of ``chunk`` subdomains, writing each
+    batch-leading tensors) over slabs of ``chunk`` subdomains (default
+    :func:`batch_chunk_size` of the first tensor's blocks), writing each
     slab's results into preallocated outputs, so only one slab's
     temporaries are alive beside the inputs and the results.  One call when
     the batch fits in a slab."""
     n = arrays[0].shape[0]
+    if chunk is None:
+        chunk = batch_chunk_size(arrays[0].shape[-1],
+                                 arrays[0].element_size())
     if chunk >= n:
         return fn(*arrays)
     outs = None
@@ -199,8 +208,9 @@ def chunked_batch(fn, *arrays, chunk: int):
 
 def factor_batched(
     A: torch.Tensor,
-    solver_type: str = "cholesky",
+    solver_type: str = "lu",
     mode: str = "auto",
+    refine_steps: int | None = None,
     store_dtype=None,
     symmetrize: bool = True,
 ):
@@ -213,6 +223,9 @@ def factor_batched(
     per apply), "auto" takes factors for CPU
     tensors and inverses for CUDA tensors — on the card the apply is then a
     bandwidth-bound matvec instead of 2p dependent substitution steps.
+    refine_steps: the JAX package's Newton polish of the inverse, a TPU
+    workaround that is off there by default; only None and 0 (no polish)
+    are accepted.
     store_dtype: None (f64), "dd" or torch.float32 (inverse mode only).
     symmetrize: Cholesky factors (A + A^T) / 2, as ``jnp.linalg.cholesky``
     does in the JAX package (bit-equal to A when A is symmetric; a
@@ -226,6 +239,8 @@ def factor_batched(
         raise ValueError(f"unknown factorization mode '{mode}'")
     if store_dtype not in _STORE_DTYPES:
         raise ValueError(f"store_dtype '{store_dtype}' is not ported")
+    if refine_steps:
+        raise ValueError("refine_steps > 0 (Newton polish) is not ported")
     if mode == "factors":
         if store_dtype is not None:
             raise ValueError("store_dtype needs mode='inverse'")

@@ -53,6 +53,18 @@ def _norm(x: torch.Tensor) -> float:
     return float(torch.sqrt(torch.dot(x, x)))
 
 
+def masked_dot(x: torch.Tensor, y: torch.Tensor,
+               mask: torch.Tensor) -> torch.Tensor:
+    """Scalar product restricted to the dofs of ``mask`` (reference:
+    MaskedScalarProduct, dune/ddm/helpers.hh:341-375, which keeps
+    constrained and ghost dofs out of convergence norms)."""
+    return torch.dot(x * mask.to(x.dtype), y)
+
+
+def masked_norm(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(masked_dot(x, x, mask))
+
+
 def cg_solve(
     op: Callable, prec: Callable | None, b: torch.Tensor, x0: torch.Tensor,
     reduction: float = 1e-8, maxit: int = 1000,
@@ -178,7 +190,7 @@ def _restarted_gmres(op, prec, b, x0, reduction, maxit, restart, verify,
 def gmres_solve(
     op: Callable, prec: Callable | None, b: torch.Tensor, x0: torch.Tensor,
     reduction: float = 1e-8, maxit: int = 1000, restart: int = 30,
-    verify: bool = False,
+    verify: bool | None = None,
 ) -> KrylovResult:
     """Left-preconditioned restarted GMRES (ISTL RestartedGMResSolver).
 
@@ -186,7 +198,9 @@ def gmres_solve(
     preconditioned defect instead of the Givens estimate.  Needed when the
     preconditioner apply carries reduced-precision noise (the dd subdomain
     solve): below that noise the estimate decouples from the true residual
-    and reports false convergence."""
+    and reports false convergence.  None, as in the JAX package, verifies
+    only under its dd orthogonalization, which the port does not have: it
+    means False."""
     return _restarted_gmres(op, prec, b, x0, reduction, maxit, restart,
                             verify, flexible=False)
 
@@ -194,14 +208,15 @@ def gmres_solve(
 def fgmres_solve(
     op: Callable, prec: Callable | None, b: torch.Tensor, x0: torch.Tensor,
     reduction: float = 1e-8, maxit: int = 1000, restart: int = 30,
-    verify: bool = False,
+    verify: bool | None = None,
 ) -> KrylovResult:
     """Flexible (right-preconditioned) restarted GMRES (ISTL
     RestartedFlexibleGMResSolver).  The recurrence tracks the true residual
     and the preconditioner enters only through the solution basis Z, so a
     norm-distorting or inexact preconditioner does not cap the attainable
     accuracy as it does on the left.  ``verify``: terminate each cycle on
-    the recomputed true residual."""
+    the recomputed true residual (None means False, as in
+    :func:`gmres_solve`)."""
     return _restarted_gmres(op, prec, b, x0, reduction, maxit, restart,
                             verify, flexible=True)
 

@@ -247,3 +247,109 @@ def test_harmonic_parameter_basis_matches_jax(state, extension_case, form):
     assert np.abs(H.numpy() - H_j).max() <= 1e-10 * np.abs(H_j).max()
     R = (A @ H).numpy()
     assert np.abs(R[np.broadcast_to(interior[:, :, None], R.shape)]).max() < 1e-10
+
+
+def test_default_galerkin_matches_jax_on_a_non_vanishing_basis(
+        state, extension_case):
+    """``build_galerkin`` at its defaults (``method="global"``, no ptree:
+    an LU coarse factor) gives the JAX package's default E to 1e-10 over a
+    basis that does not vanish on subdomain boundaries, where the ``pairs``
+    formula is not exact (1.6e-2 off here): four vectors per subdomain from
+    ``numpy.random.default_rng(0)`` on its valid dofs (this fixture's svd
+    and harmonic bases are POU-finalized and vanish there).  So does
+    ``method="local"`` given the dense subdomain batch ``A_sub``, which
+    equals the port's own extraction bit for bit."""
+    from ddm_tpu.coarse.basis import CoarseBasis as JBasis
+    from ddm_tpu.precond.galerkin import build_galerkin as j_build_galerkin
+    from ddm_tpu_torch.precond.galerkin import build_galerkin
+    from ddm_tpu_torch.solvers.direct import BatchedLU
+
+    p, pj = state["p"], state["pj"]
+    topo = p.topo
+    V = (np.random.default_rng(0).standard_normal((topo.n_sub, 4, topo.n_pad))
+         * topo.valid[:, None, :])
+    active = np.ones((topo.n_sub, 4), bool)
+    basis = convert.basis_from_numpy(V, active, device="cpu")
+    jbasis = JBasis(V=jnp.asarray(V), active=jnp.asarray(active))
+    G = build_galerkin(p.A, topo, basis)
+    Gj = j_build_galerkin(pj.A, pj.topo, jbasis)
+    E, E_j = G.E_mat.numpy(), np.asarray(Gj.E_mat)
+    assert np.abs(E - E_j).max() <= 1e-10 * np.abs(E_j).max()
+    assert isinstance(G.coarse, BatchedLU)
+    A_sub = extension_case["A_dir"]
+    G_loc = build_galerkin(p.A, topo, basis, method="local", A_sub=A_sub)
+    Gj_loc = j_build_galerkin(pj.A, pj.topo, jbasis, method="local",
+                              A_sub=jnp.asarray(A_sub.numpy()))
+    E_loc = G_loc.E_mat.numpy()
+    assert np.abs(E_loc - np.asarray(Gj_loc.E_mat)).max() <= 1e-10 * np.abs(
+        E_loc).max()
+    assert torch.equal(G_loc.E_mat, build_galerkin(
+        p.A, topo, basis, method="local").E_mat)
+
+
+@pytest.mark.parametrize("solver_type", ["lu", "cholesky"])
+def test_energy_minimal_extension_solver_types_match_jax(extension_case,
+                                                         solver_type):
+    """The dense extension factored by LU (the default in both packages)
+    and by Cholesky equals the JAX package's with the same solver to
+    1e-10."""
+    c = extension_case
+    free, U = torch.as_tensor(c["free"]), torch.as_tensor(c["U"])
+    got = text.energy_minimal_extension(c["A_dir"], free, U, solver_type)
+    want = np.asarray(jext.energy_minimal_extension(
+        jnp.asarray(c["A_dir"].numpy()), jnp.asarray(c["free"]),
+        jnp.asarray(c["U"]), solver_type))
+    assert np.abs(got.numpy() - want).max() <= 1e-10 * np.abs(want).max()
+    if solver_type == "lu":
+        assert torch.equal(got, text.energy_minimal_extension(
+            c["A_dir"], free, U))
+
+
+def _two_level(api, two_level, schwarz, p, cs, fine=None):
+    p = dataclasses.replace(p, ptree=_ptree(api, cs))
+    if fine == "build":
+        fine = schwarz.build_schwarz(p.A, p.topo, p.pou, p.ptree)
+    return fine, two_level.build_two_level(p, fine=fine)
+
+
+def test_two_level_reuses_a_given_fine_level(state):
+    """``build_two_level(p, fine=)`` keeps the given Schwarz level, applies
+    as the one built without it (bit for bit) and as the JAX package's
+    with its own given fine level: each package factors its own subdomain
+    matrices, which agree to cond * eps, 3e-9 relative, as the built
+    Schwarz apply of tests/test_torch_precond.py.  With
+    ``coarsespace.type = none`` both packages return the fine level
+    itself."""
+    import ddm_tpu.precond.schwarz as jschwarz
+    import ddm_tpu_torch.precond.schwarz as tschwarz
+
+    p, pj = state["p"], state["pj"]
+    d = np.random.default_rng(5).standard_normal(pj.topo.n_glob)
+    fine, M = _two_level(tapi, ttwo, tschwarz, p, "pou", "build")
+    _, M0 = _two_level(tapi, ttwo, tschwarz, p, "pou")
+    _, Mj = _two_level(japi, jtwo, jschwarz, pj, "pou", "build")
+    assert M.precs[0] is fine
+    y = M.apply(torch.as_tensor(d)).numpy()
+    assert np.array_equal(y, M0.apply(torch.as_tensor(d)).numpy())
+    y_j = np.asarray(Mj.apply(jnp.asarray(d)))
+    assert np.linalg.norm(y - y_j) <= 3e-9 * np.linalg.norm(y_j)
+    for api, two_level, schwarz, q in ((tapi, ttwo, tschwarz, p),
+                                       (japi, jtwo, jschwarz, pj)):
+        fine, M = _two_level(api, two_level, schwarz, q, "none", "build")
+        assert M is fine
+
+
+def test_two_level_refuses_a_fine_level_of_another_mesh(state):
+    """Under ``setup_sharding`` a fine level built without the mesh is
+    refused, as ``solve_sharded`` refuses such a preconditioner."""
+    import ddm_tpu_torch.precond.schwarz as tschwarz
+    from ddm_tpu_torch.core.mesh import SubdomainMesh, setup_sharding
+
+    p = state["p"]
+    fine, _ = _two_level(tapi, ttwo, tschwarz, p, "none", "build")
+    mesh = SubdomainMesh(group=None, rank=0, size=1,
+                         device=torch.device("cpu"), backend="gloo")
+    with setup_sharding(mesh, p.topo.n_sub):
+        with pytest.raises(ValueError, match="another mesh"):
+            ttwo.build_two_level(dataclasses.replace(
+                p, ptree=_ptree(tapi, "pou")), fine=fine)

@@ -126,6 +126,45 @@ def test_constrained_system_matches_jax(problems_32):
                                   np.asarray(pj.disc.dirichlet_mask))
 
 
+@pytest.mark.parametrize("name", ["beams", "checkerboard_cd"])
+def test_assembly_of_another_problem_matches_jax(problems_32, name):
+    """``assemble``, ``constrained_system`` and ``neumann_stamps`` given a
+    second problem on the discretization's grid (beams, and the
+    nonsymmetric checkerboard convection-diffusion, whose stamps are
+    symmetrized) equal the JAX package's ``disc.<method>(problem)`` to
+    1e-12 relative, as the discretization's own system above (the element
+    quadrature sums round differently from XLA's in the last bits); the
+    discretization's own problem stays the default."""
+    pj, pt = problems_32
+    dj, dt = pj.disc, pt.disc
+    pb_j, pb_t = jproblems.PROBLEMS[name](), tproblems.PROBLEMS[name]()
+
+    def close(a, b):
+        a, b = np.asarray(a), np.asarray(b)
+        assert np.abs(a - b).max() <= 1e-12 * max(np.abs(b).max(), 1e-300)
+
+    def close_csr(Aj, At):
+        Sj, St = dj.pattern.to_scipy(Aj), dt.pattern.to_scipy(At)
+        assert abs(Sj - St).max() <= 1e-12 * abs(Sj).max()
+
+    Aj, bj = dj.assemble(pb_j)
+    At, bt = dt.assemble(pb_t)
+    close_csr(Aj, At)
+    close(bt.numpy(), bj)
+    Acj, rj, gj = dj.constrained_system(pb_j)
+    Act, rt, gt = dt.constrained_system(pb_t)
+    close_csr(Acj, Act)
+    close(rt.numpy(), rj)
+    np.testing.assert_array_equal(gt.numpy(), np.asarray(gj))
+    (dofs_j, K_j), = dj.neumann_stamps(pb_j)
+    (dofs_t, K_t), = dt.neumann_stamps(pb_t)
+    np.testing.assert_array_equal(dofs_t, dofs_j)
+    close(K_t.numpy(), K_j)
+    own, = dt.neumann_stamps()
+    assert not torch.equal(own[1], K_t)
+    assert torch.equal(own[1], dt.neumann_stamps(dt.problem)[0][1])
+
+
 def test_sum_plan_scatter_add():
     """SumPlan equals np.add.at (to rounding), lists each target's sources
     in ascending order, and leaves untouched targets zero."""

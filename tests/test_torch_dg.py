@@ -68,6 +68,29 @@ def test_dg_matrices_and_stamps_match_jax(kind):
 
 
 @pytest.mark.parametrize("kind", list(KINDS))
+def test_dg_stamps_of_another_problem_match_jax(kind):
+    """``neumann_stamps(problem)`` and, for Q1, the volume-only
+    ``element_matrices(problem)`` of a second (nonsymmetric) problem on the
+    same DG discretization equal the JAX package's to 1e-12."""
+    dj, dt = _pair(kind, jproblems.dg_heterogeneous(),
+                   tproblems.dg_heterogeneous())
+    pj = jproblems.checkerboard_convection_diffusion()
+    pt = tproblems.checkerboard_convection_diffusion()
+    groups_j, groups_t = dj.neumann_stamps(pj), dt.neumann_stamps(pt)
+    assert len(groups_t) == len(groups_j)
+    for (dofs_j, Kj), (dofs_t, Kt), (_, Kown) in zip(
+            groups_j, groups_t, dt.neumann_stamps()):
+        np.testing.assert_array_equal(dofs_t, dofs_j)
+        assert _rel(Kt.numpy(), Kj) < 1e-12
+    assert not torch.equal(Kt, Kown)
+    if kind == "q1":
+        (Kj, fj), (Kt, ft) = dj.element_matrices(pj), dt.element_matrices(pt)
+        assert _rel(Kt.numpy(), Kj) < 1e-12
+        np.testing.assert_allclose(ft.numpy(), np.asarray(fj), rtol=1e-12,
+                                   atol=0)
+
+
+@pytest.mark.parametrize("kind", list(KINDS))
 def test_dg_reproduces_linear_exactly(kind):
     """SIPG is consistent: u = x lies in the DG space, so the discrete
     solution is exact (face terms cancel)."""

@@ -102,6 +102,29 @@ def test_lobpcg_matches_jax(request, case):
                                    rtol=1e-8)
 
 
+def test_lobpcg_block_width_m_matches_jax():
+    """``m`` is the block width in both packages: given as X0's width it
+    changes nothing (the same iterations and eigenvalues as the JAX
+    package's with the same ``m``); another width is refused by both."""
+    A, C, prec = _known_spectrum()
+    X0 = np.random.default_rng(3).standard_normal(A.shape[:2] + (5,))
+    kw = dict(maxit=80, tol=1e-6)
+    lam_j, _, _, it_j = jlobpcg.lobpcg_gevp(
+        jnp.asarray(A), jnp.asarray(C), jnp.asarray(X0),
+        prec_inv=jnp.asarray(prec), m=5, **kw)
+    tA, tC, tX0, tprec = (torch.tensor(x) for x in (A, C, X0, prec))
+    lam, _, _, it = tlobpcg.lobpcg_gevp(tA, tC, tX0, tprec, 5, **kw)
+    lam0, _, _, it0 = tlobpcg.lobpcg_gevp(tA, tC, tX0, tprec, **kw)
+    assert it == it0 == int(it_j)
+    assert torch.equal(lam, lam0)
+    np.testing.assert_allclose(lam.numpy(), np.asarray(lam_j), rtol=1e-10)
+    with pytest.raises(ValueError, match="width"):
+        tlobpcg.lobpcg_gevp(tA, tC, tX0, tprec, 4, **kw)
+    with pytest.raises(TypeError, match="carry"):
+        jlobpcg.lobpcg_gevp(jnp.asarray(A), jnp.asarray(C), jnp.asarray(X0),
+                            prec_inv=jnp.asarray(prec), m=4, **kw)
+
+
 def test_adaptive_escalation_matches_jax(monkeypatch):
     """threshold 6.5 on diag(1..32): the block doubles 2 -> 4 -> 8 in both
     packages, and the kept masks are the same below-threshold prefix."""

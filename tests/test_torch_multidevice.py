@@ -27,6 +27,7 @@ block, so its count may move by 2 (as tests/test_multichip.py allows).
 The iterates of the four ranks must be bit-identical.
 """
 
+import dataclasses
 import datetime
 
 import numpy as np
@@ -171,7 +172,9 @@ def _rank_case(name, mesh):
             out["error"] = str(e)
     if name == "geneo_cg":
         out["dims"] = _batched_leading_dims(prec, p.topo.n_sub)
-        out["coarse_chol"] = prec.precs[1].coarse.chol.clone()
+        coarse = prec.precs[1].coarse  # LU: no coarse_solver.type given
+        out["coarse_factor"] = {f.name: getattr(coarse, f.name).clone()
+                                for f in dataclasses.fields(coarse)}
     return out
 
 
@@ -273,9 +276,10 @@ def test_sharded_prec_state_is_distributed(runs):
         assert {"0.sub2glob", "0.pou", "0.factors.chol", "1.V",
                 "1.active"} <= set(dims), dims
         assert set(dims.values()) == {n_loc}, dims
-    chol = ranks[0]["geneo_cg"]["coarse_chol"]
-    assert all(torch.equal(r["geneo_cg"]["coarse_chol"], chol)
-               for r in ranks[1:])
+    factor = ranks[0]["geneo_cg"]["coarse_factor"]
+    assert set(factor) == {"lu", "piv"}
+    assert all(torch.equal(r["geneo_cg"]["coarse_factor"][k], v)
+               for r in ranks[1:] for k, v in factor.items())
 
 
 def test_setup_is_sharded_during_build(runs):

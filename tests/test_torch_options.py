@@ -166,6 +166,36 @@ def test_matrix_market_across_packages(tmp_path):
     assert np.array_equal(jpat2.to_scipy(jell2).toarray(), S.toarray())
 
 
+def test_profile_trace_writes_a_chrome_trace_as_jax(tmp_path):
+    """Both packages' ``profile_trace(log_dir)`` write a Chrome trace of
+    the work inside the context under ``log_dir``: the JAX package's as
+    the ``*.trace.json.gz`` of its TensorBoard profile, the port's as
+    ``trace_*.json``; both hold trace events, the port's the torch ops it
+    ran, and the port's keeps its profiler for ``key_averages()``."""
+    import gzip
+    import json
+
+    import jax.numpy as jnp
+
+    from ddm_tpu.obs.logger import profile_trace as j_profile_trace
+    from ddm_tpu_torch.obs.logger import profile_trace
+
+    with j_profile_trace(str(tmp_path / "jax")):
+        (jnp.ones((64, 64)) @ jnp.ones((64, 64))).block_until_ready()
+    j_trace, = (tmp_path / "jax").rglob("*.trace.json.gz")
+    with gzip.open(j_trace) as f:
+        assert json.load(f)["traceEvents"]
+    with profile_trace(str(tmp_path / "port")) as tr:
+        torch.ones((64, 64), dtype=torch.float64) @ torch.ones(
+            (64, 64), dtype=torch.float64)
+    t_trace, = (tmp_path / "port").glob("trace_*.json")
+    assert str(t_trace) == tr.path
+    with open(t_trace) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert "aten::mm" in names
+    assert any(e.key == "aten::mm" for e in tr.prof.key_averages())
+
+
 def test_log_level_parsing():
     """tests/test_obs.py:test_log_level_parsing on the port, and the
     levels' filtering and {}-formatting."""

@@ -181,6 +181,35 @@ def test_cholqr2_matches_jax():
     assert _relerr(Q, j_cholqr2(jnp.asarray(W))) < 1e-10
 
 
+def test_default_factor_batched_solves_a_nonsymmetric_batch_as_jax():
+    """``factor_batched(A)`` at its defaults is LU in both packages, so a
+    nonsymmetric batch is solved exactly (a Cholesky default would factor
+    (A + A^T) / 2 and miss by ~1e-1): the port's solve lies within 1e-12
+    of the JAX package's and of numpy's."""
+    from ddm_tpu.solvers.direct import factor_batched as j_factor_batched
+    from ddm_tpu_torch.solvers.direct import factor_batched
+
+    rng = np.random.default_rng(11)
+    A = rng.standard_normal((2, 8, 8)) + 8 * np.eye(8)
+    b = rng.standard_normal((2, 8))
+    x = factor_batched(torch.as_tensor(A)).solve(torch.as_tensor(b)).numpy()
+    x_j = np.asarray(j_factor_batched(jnp.asarray(A)).solve(jnp.asarray(b)))
+    assert np.abs(x - x_j).max() <= 1e-12 * np.abs(x_j).max()
+    assert np.abs(x - np.linalg.solve(A, b[..., None])[..., 0]).max() <= 1e-12
+
+
+@pytest.mark.parametrize("args", [(848,), (848, 8, 6), (1968, 4), (1000, 8, 10),
+                                  (2464, 4, 20, 1 << 28)])
+def test_batch_chunk_size_matches_jax(args, monkeypatch):
+    """Slab sizes equal the JAX package's for the same positional
+    arguments (its DDM_TPU_BATCH_CHUNK override unset)."""
+    from ddm_tpu.solvers.direct import batch_chunk_size as j_batch_chunk_size
+    from ddm_tpu_torch.solvers.direct import batch_chunk_size
+
+    monkeypatch.delenv("DDM_TPU_BATCH_CHUNK", raising=False)
+    assert batch_chunk_size(*args) == j_batch_chunk_size(*args)
+
+
 # -- the reference's 4-rank coarse-matrix fixture and the ``local`` formula --
 # (tests/test_galerkin.py: tests/test_galerkin_coarse_matrix.cc of the
 # reference, a 9x9 nonsymmetric matrix over 4 subdomains)

@@ -297,8 +297,9 @@ def dd_coarse(state, ring_spaces):
     basis = convert.basis_from_numpy(ring_spaces["port"]["V"],
                                      ring_spaces["port"]["active"],
                                      device="cpu")
-    G = build_galerkin(p.A, p.topo, basis, _ptree(tapi))
-    G_dd = build_galerkin(p.A, p.topo, basis, _ptree(tapi, "dd"))
+    G = build_galerkin(p.A, p.topo, basis, _ptree(tapi), method="global")
+    G_dd = build_galerkin(p.A, p.topo, basis, _ptree(tapi, "dd"),
+                          method="global")
     assert isinstance(G_dd.coarse, BatchedCholesky)
     # the inverse the Galerkin builder forms on the card (lower triangle)
     inv = factor_batched(G.E_mat[None], "cholesky", mode="inverse",
@@ -329,7 +330,8 @@ def test_dd_coarse_apply_matches_jax(state, ring_spaces, dd_coarse):
     pj, E = state["pj"], dd_coarse["G"].E_mat.numpy()
     basis = jbasis.CoarseBasis(V=jnp.asarray(ring_spaces["port"]["V"]),
                                active=jnp.asarray(ring_spaces["port"]["active"]))
-    Gj = jgalerkin.build_galerkin(pj.A, pj.topo, basis, _ptree(japi, "dd"))
+    Gj = jgalerkin.build_galerkin(pj.A, pj.topo, basis, _ptree(japi, "dd"),
+                                 method="global")
     assert Gj.refine == dd_coarse["G_dd"].refine == 2
     assert _relerr(E, Gj.E_mat) < 1e-12
     Gj = dataclasses.replace(Gj, E_mat=jnp.asarray(E),
@@ -365,7 +367,8 @@ def test_coarse_factor_symmetrization_within_apply_noise(state, ring_spaces,
     assert torch.equal(invs["lower"], torch.as_tensor(dd_coarse["inv"]))
     basis = jbasis.CoarseBasis(V=jnp.asarray(ring_spaces["port"]["V"]),
                                active=jnp.asarray(ring_spaces["port"]["active"]))
-    Gj = jgalerkin.build_galerkin(pj.A, pj.topo, basis, _ptree(japi, "dd"))
+    Gj = jgalerkin.build_galerkin(pj.A, pj.topo, basis, _ptree(japi, "dd"),
+                                 method="global")
     errs = {}
     for name, inv in invs.items():
         G_dd = dataclasses.replace(dd_coarse["G_dd"],
