@@ -25,9 +25,26 @@ leaves its eigh to XLA.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .params import EigensolverParams
+
+
+def _eigh(S: torch.Tensor):
+    """``torch.linalg.eigh`` of the batch S.  On the CPU, MKL's syevd does
+    not converge on some rank-deficient pencils whose rows are mostly zero
+    (msgfem's reduced pencils at islands 384^2/256: rank 50 of 848, under
+    any thread count); there numpy's LAPACK decomposes the batch, as the
+    JAX package's CPU eigh (LAPACK through scipy) does on the same
+    matrices."""
+    try:
+        return torch.linalg.eigh(S)
+    except torch.linalg.LinAlgError:
+        if S.device.type != "cpu":
+            raise
+        mu, W = np.linalg.eigh(S.numpy())
+        return torch.from_numpy(mu), torch.from_numpy(W)
 
 
 def cholqr2(W: torch.Tensor) -> torch.Tensor:
@@ -79,14 +96,14 @@ def solve_gevp_dense(
         Linv = torch.linalg.solve_triangular(L, eye.expand_as(A), upper=False)
         del L
     else:
-        d, Q = torch.linalg.eigh(0.5 * (A + A.mT))
+        d, Q = _eigh(0.5 * (A + A.mT))
         d = torch.clamp(d, min=eps[:, None])
         # any square root serves the congruence: A^{-1/2} = d^{-1/2} Q^T
         Linv = Q.mT / torch.sqrt(d)[:, :, None]
         del d, Q
     S = Linv @ C @ Linv.mT
     S = 0.5 * (S + S.mT)
-    mu, Wt = torch.linalg.eigh(S)
+    mu, Wt = _eigh(S)
     del S
     # top-m mu == smallest-m lambda; reorder so lambda ascends
     mu_sel = mu[:, -m:].flip(1)  # (n_sub, m)

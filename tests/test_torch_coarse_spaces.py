@@ -353,3 +353,39 @@ def test_two_level_refuses_a_fine_level_of_another_mesh(state):
         with pytest.raises(ValueError, match="another mesh"):
             ttwo.build_two_level(dataclasses.replace(
                 p, ptree=_ptree(tapi, "pou")), fine=fine)
+
+
+def _rank_deficient_pencils():
+    """Three pencils (I, C) of size 300 whose C is a random symmetric PSD
+    matrix of rank 35 on 36 rows (1-26 and every 27th from 53) and zero
+    elsewhere, the pattern and spectrum of a msgfem reduced pencil at
+    islands 384^2/256; MKL's syevd does not converge on at least one of them
+    under 1 to 8 threads."""
+    n, idx = 300, np.r_[1:27, 53:300:27]
+    Cs = []
+    for seed in (0, 4, 25):
+        rng = np.random.default_rng(seed)
+        ev = np.sort(rng.uniform(0, 1, len(idx)) ** 4) * 2.5
+        ev[0] = 0.0
+        Q, _ = np.linalg.qr(rng.standard_normal((len(idx), len(idx))))
+        C = np.zeros((n, n))
+        C[np.ix_(idx, idx)] = (Q * ev) @ Q.T
+        Cs.append(0.5 * (C + C.T))
+    return np.broadcast_to(np.eye(n), (3, n, n)).copy(), np.stack(Cs)
+
+
+def test_dense_gevp_of_a_rank_deficient_pencil_matches_jax():
+    """The dense GEVP of pencils that MKL's eigh does not converge on: the
+    JAX package's kept eigenvalues (to 1e-10 of the largest) and masks."""
+    from ddm_tpu.eigen.dense_gevp import solve_gevp_dense as j_gevp
+    from ddm_tpu.eigen.params import EigensolverParams as JParams
+    from ddm_tpu_torch.eigen.dense_gevp import solve_gevp_dense
+
+    A, C = _rank_deficient_pencils()
+    lam, _, kept = solve_gevp_dense(torch.as_tensor(A), torch.as_tensor(C),
+                                    EigensolverParams(nev=8))
+    lam_j, _, kept_j = j_gevp(jnp.asarray(A), jnp.asarray(C), JParams(nev=8))
+    kept, kept_j = kept.numpy(), np.asarray(kept_j)
+    assert np.array_equal(kept, kept_j) and kept.any()
+    mu, mu_j = 1.0 / lam.numpy()[kept], 1.0 / np.asarray(lam_j)[kept_j]
+    assert np.abs(mu - mu_j).max() <= 1e-10 * np.abs(mu_j).max()

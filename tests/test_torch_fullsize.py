@@ -1,0 +1,364 @@
+"""Every full-size path of ``chip_smoke.py`` under the JAX package (the
+reference) and under the port, both on the CPU with f64, at
+``chip_smoke.FULL``'s size with the ptree keys of ``chip_smoke.PATHS`` or
+the example command lines (``CLI_PATHS``, ``NEWTON_PATHS``).
+
+Each case runs each side in its own process (this file run as a script:
+``python tests/test_torch_fullsize.py jax|port <path>`` prints one JSON
+line: iterations, true relative residual, wall seconds and peak resident
+memory), so two multi-GB subdomain batches are never resident at once and
+the port's process never imports jax.  The port's iteration count must lie
+within 2 of the JAX package's, and ``chip_smoke.py``'s iteration limits
+must be the recorded JAX count + 2 (``chip_smoke.JAX_FULL_SIZE``,
+``LIMIT_OF``).  Each case takes minutes and several GB (PERF.md section 2):
+every case is marked slow, so tier-1's ``-m 'not slow'`` deselects the file.
+
+    python -m pytest -m slow tests/test_torch_fullsize.py -k elast_f64
+"""
+
+import json
+import os
+import resource
+import subprocess
+import sys
+import time
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke  # noqa: E402  (imports torch, never jax)
+
+SIDE_TIMEOUT_S = 3600
+# The JAX package's count can move by one with XLA's CPU thread count (the
+# L-shape: 17 on 8 threads, 18 on 4): JAX_FULL_SIZE holds its counts on 8
+# cores, and each side runs on 8
+JAX_CPUS = 8
+JAX_EXAMPLES = os.path.join(ROOT, "ddm_tpu", "examples")
+
+
+def _newton_case(path):
+    return path in chip_smoke.NEWTON_PATHS
+
+
+def _cli_case(path):
+    return path in chip_smoke.CLI_PATHS
+
+
+def _port_ptree(path, size):
+    from ddm_tpu_torch import api as tapi
+
+    return chip_smoke.path_ptree(tapi, path, size)
+
+
+def _peak_gib():
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+# -- the JAX side ----------------------------------------------------------
+
+def _jax():
+    """JAX on the CPU with x64 (the platform is set after import: an
+    installed plugin may override the environment variable)."""
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+
+
+def _jax_problem(path):
+    """The problem of ``path`` at full size built with the JAX package's
+    API, as ``chip_smoke.path_problem`` builds it with the port's."""
+    import ddm_tpu.api as japi
+    from ddm_tpu.config import ParamTree
+    from ddm_tpu.core.indexmaps import pou_weights
+    from ddm_tpu.core.setup import setup_topology
+    from ddm_tpu.core.sparse import jacobi_equilibrate
+    from ddm_tpu.fem import problems
+    from ddm_tpu.fem.grids import structured_grid
+
+    kind = chip_smoke.PATHS[path][0]
+    size, parts = chip_smoke.FULL[kind]
+    pt = ParamTree(_port_ptree(path, size).as_dict())
+    if kind == "dg":
+        # the port's examples/convectiondiffusiondg.setup, equilibrated
+        from ddm_tpu.fem.dg import DGDiscretization
+
+        disc = DGDiscretization(structured_grid((size, size)),
+                                problems.dg_heterogeneous())
+        A, b, g = disc.constrained_system()
+        A, b, scale = jacobi_equilibrate(A, b)
+        topo, elem_part = setup_topology(disc, overlap=pt.get("overlap", 1),
+                                         parts=parts)
+        pou = pou_weights(topo, pt.sub("pou").get("type", "standard"),
+                          shrink=pt.sub("pou").get("shrink", 0))
+        return japi.DDMProblem(disc=disc, topo=topo, A=A, rhs=b, g=g, pou=pou,
+                               ptree=pt, elem_part=elem_part, scale=scale)
+    if kind == "elast":
+        grid = structured_grid((size, size), (0, 0), (3.0, 1.0))
+        return japi.setup_problem(pt, problem=problems.steel_rubber_2d(),
+                                  grid=grid, parts=parts, n_comp=2)
+    if kind == "unstr":
+        return japi.setup_problem(pt, grid=japi.make_grid(pt), n_sub=parts)
+    if kind == "p2":
+        # tests/test_p2.py:test_p2_ddm_solve's steps at full size
+        from ddm_tpu.fem.discretize import Discretization
+
+        disc = Discretization(structured_grid((size, size), simplex=True),
+                              problems.islands(), degree=2)
+        A, rhs, g = disc.constrained_system()
+        A, rhs, scale = jacobi_equilibrate(A, rhs)
+        topo, elem_part = setup_topology(disc, overlap=pt.get("overlap", 2),
+                                         n_sub=parts)
+        pou = pou_weights(topo, "distance")
+        return japi.DDMProblem(disc=disc, topo=topo, A=A, rhs=rhs, g=g,
+                               pou=pou, ptree=pt, elem_part=elem_part,
+                               scale=scale)
+    return japi.setup_problem(pt, grid=japi.make_grid(pt, dim=len(parts)),
+                              parts=parts)
+
+
+def _jax_path(path):
+    import jax.numpy as jnp
+
+    import ddm_tpu.api as japi
+
+    t0 = time.perf_counter()
+    p = _jax_problem(path)
+    M = japi.build_preconditioner(p)
+    res = japi.solve(p, M)
+    res.x.block_until_ready()
+    secs = time.perf_counter() - t0
+    true_res = float(jnp.linalg.norm(p.A.mv(res.x) - p.rhs)
+                     / jnp.linalg.norm(p.rhs))
+    # the iteration at which the Givens estimate first meets the target:
+    # the same solve, unverified (the port's KrylovResult.estimate_hit)
+    p.ptree["solver.verify"] = False
+    hit = int(japi.solve(p, M).iterations)
+    return dict(iterations=int(res.iterations), converged=bool(res.converged),
+                true_res=true_res, estimate_hit=hit,
+                verified_at_hit=chip_smoke.verified_at(japi, p, M, hit),
+                n_sub=int(p.topo.n_sub), n_pad=int(p.topo.n_pad), secs=secs)
+
+
+def _jax_inverse():
+    """The JAX package's Schwarz level with explicit f64 inverses, as it
+    builds them off the CPU and as the port builds them on the card (on the
+    CPU it keeps triangular factors): a perturbation of the size of the
+    card's rounding, for the JAX package's own spread."""
+    from ddm_tpu.precond import schwarz
+
+    jit = schwarz.factor_batched_jit
+    schwarz.factor_batched_jit = lambda solver_type, mode="auto", **kw: jit(
+        solver_type, "inverse" if mode == "auto" else mode, **kw)
+
+
+def _jax_argv(argv):
+    """A command line of the port's examples with the JAX package's
+    coefficient scripts (the port's are torch rewrites; the inis are
+    equal) and without VTK output (it changes no count)."""
+    port = os.path.join(ROOT, "ddm_tpu_torch", "examples")
+    out = [a.replace(port, JAX_EXAMPLES) for a in argv]
+    if "-vtk_filename" in out:
+        i = out.index("-vtk_filename")
+        del out[i:i + 2]
+        out += ["-visualise", "false"]
+    return out
+
+
+def _jax_cli(path):
+    """The example of ``path`` as ``ddm_tpu.examples.cli.main`` runs it,
+    with its problem and result kept (cli.main returns nothing)."""
+    import jax.numpy as jnp
+
+    argv = _jax_argv(chip_smoke.CLI_PATHS[path]())
+    i = argv.index("-problem")
+    example = argv[i + 1]
+    del argv[i:i + 2]
+    t0 = time.perf_counter()
+    if example == "elasticity":
+        from ddm_tpu.examples import linearelasticity
+
+        p, res = linearelasticity.main(argv)
+    else:
+        from ddm_tpu.examples import poisson
+        from ddm_tpu.fem import problems
+
+        argv = poisson.setup_loggers(argv)
+        pt = poisson.default_ptree()
+        pt["gridsize"] = 64
+        pt["subdomains"] = 16
+        poisson.apply_cli_overrides(pt, argv)
+        poisson.read_ini_file(pt.get("ini_file"), pt)
+        poisson.apply_cli_overrides(pt, argv)
+        p, res = poisson.run(pt, problems.PROBLEMS[pt.get("problem", "simple")]())
+    res.x.block_until_ready()
+    secs = time.perf_counter() - t0
+    true_res = float(jnp.linalg.norm(p.A.mv(res.x) - p.rhs)
+                     / jnp.linalg.norm(p.rhs))
+    return dict(iterations=int(res.iterations), converged=bool(res.converged),
+                true_res=true_res, n_sub=int(p.topo.n_sub),
+                n_pad=int(p.topo.n_pad), secs=secs)
+
+
+def _jax_newton(path):
+    """The nonlinear example under the shipped ini at full size, its inner
+    BiCGStab count of every Newton step recorded; the degree and simplex
+    keys (the port's example reads them, the JAX example does not) go to
+    the JAX discretization by hand."""
+    import jax.numpy as jnp
+
+    from ddm_tpu.config import ParamTree
+    from ddm_tpu.fem.grids import structured_grid
+    from ddm_tpu.fem.nonlinear import NonlinearDiscretization, NonlinearProblem
+    from ddm_tpu.solvers.nonlinear_driver import TwoLevelNewtonSolver
+    from ddm_tpu_torch.examples.nonlinearpoisson import nonlinear_ptree
+
+    size, n_sub, args = chip_smoke.NEWTON_PATHS[path]
+    pt = ParamTree(nonlinear_ptree(chip_smoke.newton_argv(size, n_sub, args))
+                   .as_dict())
+    eta = pt.get("eta", 10.0)
+    nlp = NonlinearProblem(q=lambda u: eta * u * u, dq=lambda u: 2.0 * eta * u,
+                           f=lambda x: jnp.sum(x * x, axis=-1))
+    t0 = time.perf_counter()
+    grid = structured_grid((size, size), simplex=pt.get("simplex", False))
+    disc = NonlinearDiscretization(grid, nlp, degree=pt.get("degree", 1))
+    solver = TwoLevelNewtonSolver(disc, pt, n_sub=n_sub)
+    inner = []
+    krylov = solver.krylov
+
+    def counted(*a, **kw):
+        r = krylov(*a, **kw)
+        inner.append(int(r.iterations))
+        return r
+
+    solver.krylov = counted
+    res = solver.solve()
+    secs = time.perf_counter() - t0
+    r, _ = disc.residual_jacobian(res.u)
+    return dict(iterations=int(res.iterations), converged=bool(res.converged),
+                inner=inner, fresh=float(jnp.linalg.norm(r)),
+                defect0=float(res.defect0), true_res=float(
+                    jnp.linalg.norm(r)) / float(res.defect0),
+                n_sub=int(solver.topo.n_sub), n_pad=int(solver.topo.n_pad),
+                secs=secs)
+
+
+def run_jax(path, inverse=False):
+    _jax()
+    if inverse:
+        _jax_inverse()
+    if _newton_case(path):
+        out = _jax_newton(path)
+    elif _cli_case(path):
+        out = _jax_cli(path)
+    else:
+        out = _jax_path(path)
+    return dict(out, peak_gib=_peak_gib())
+
+
+# -- the port's side, through chip_smoke's own runners ----------------------
+
+def _port_inverse():
+    """The port's Schwarz and coarse levels with explicit f64 inverses on
+    the CPU, as on the card (on the CPU it keeps triangular factors)."""
+    from ddm_tpu_torch.precond import galerkin, schwarz
+
+    def inverse(fb):
+        def factor(A, solver_type="lu", mode="auto", **kw):
+            return fb(A, solver_type, "inverse" if mode == "auto" else mode,
+                      **kw)
+        return factor
+
+    for mod in (schwarz, galerkin):
+        mod.factor_batched = inverse(mod.factor_batched)
+
+
+def run_port(path, inverse=False):
+    import torch
+
+    from ddm_tpu_torch import api
+
+    if inverse:
+        _port_inverse()
+    cpu = torch.device("cpu")
+    if _newton_case(path):
+        size, n_sub, args = chip_smoke.NEWTON_PATHS[path]
+        r = chip_smoke.run_newton(chip_smoke.newton_argv(size, n_sub, args), cpu)
+        res, solver = r["res"], r["solver"]
+        out = dict(iterations=res.iterations, converged=bool(res.converged),
+                   inner=[x["inner"] for x in solver.steps], fresh=r["fresh"],
+                   defect0=float(res.defect0),
+                   true_res=r["fresh"] / float(res.defect0),
+                   n_sub=solver.topo.n_sub, n_pad=solver.topo.n_pad)
+    else:
+        if _cli_case(path):
+            r = chip_smoke.run_cli(chip_smoke.CLI_PATHS[path](), cpu)
+        else:
+            size, parts = chip_smoke.FULL[chip_smoke.PATHS[path][0]]
+            r = chip_smoke.run_path(path, size, parts, cpu)
+        res, p = r["res"], r["p"]
+        out = dict(iterations=res.iterations, converged=bool(res.converged),
+                   true_res=r["true_res"], estimate_hit=res.estimate_hit,
+                   n_sub=p.topo.n_sub, n_pad=p.topo.n_pad)
+        if not _cli_case(path):
+            out["verified_at_hit"] = chip_smoke.verified_at(
+                api, p, r["M"], res.estimate_hit)
+        if "prec_res" in r:
+            out["prec_res"] = r["prec_res"]
+    return dict(out, secs=r["secs"], peak_gib=_peak_gib())
+
+
+# side -> runner; the "-inverse" sides build explicit f64 inverses
+RUNNERS = {"jax": run_jax, "port": run_port,
+           "jax-inverse": lambda path: run_jax(path, inverse=True),
+           "port-inverse": lambda path: run_port(path, inverse=True)}
+
+
+def run_side(side, path):
+    """One side of one case in its own process; its JSON result."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    cpus = sorted(os.sched_getaffinity(0))[:JAX_CPUS]
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), side,
+                           path], capture_output=True, text=True, env=env,
+                          timeout=SIDE_TIMEOUT_S, cwd=ROOT,
+                          preexec_fn=lambda: os.sched_setaffinity(0, cpus))
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+# -- the cases ---------------------------------------------------------------
+
+# every JAX full-size reference, then the paths that have none
+CASES = list(chip_smoke.JAX_FULL_SIZE) + list(chip_smoke.UNMEASURED)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("path", CASES)
+def test_fullsize_port_matches_jax(path):
+    """The port's count within 2 of the JAX package's at full size; the
+    JAX count as recorded in chip_smoke.JAX_FULL_SIZE; every limit held
+    to it at JAX + its margin."""
+    if path in chip_smoke.UNMEASURED:
+        pytest.skip(chip_smoke.UNMEASURED[path])
+    j = run_side("jax", path)
+    t = run_side("port", path)
+    print(f"{path}: jax {j}\n{path}: port {t}")
+    assert j["converged"] and t["converged"]
+    assert abs(t["iterations"] - j["iterations"]) <= 2
+    if "inner" in j:
+        assert abs(sum(t["inner"]) - sum(j["inner"])) <= 2
+    # the recorded count, within the JAX package's own measured spread
+    # where a limit's margin takes one (margin - 2)
+    recorded = chip_smoke.JAX_FULL_SIZE[path][0]
+    for limit, (ref, margin, _) in chip_smoke.LIMIT_OF.items():
+        if ref == path:
+            assert abs(j["iterations"] - recorded) <= max(margin - 2, 0)
+            assert chip_smoke.MAX_ITERS[limit] == recorded + margin
+
+
+if __name__ == "__main__":
+    side, name = sys.argv[1:3]
+    print(json.dumps(RUNNERS[side](name)), flush=True)
