@@ -195,7 +195,14 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    times), each with its launch plan, its share of the bound
    and the library call that computes the same product, one ``torch.bmm``
    (cuBLAS) of the f64 inverse hi + lo, summed and stored once over the
-   same bytes (``library_ms``);
+   same bytes (``library_ms``); after ring_dd's, the multi-RHS kernel
+   (``dd_matmat``, k = 8 right-hand sides) at ring_dd's fine and coarse
+   shapes on its inverses: ``BatchedInverseDD.solve`` of k columns with
+   its launch count zeroed just before and read just after (it must
+   launch), its columns within 1e-10 of k one-column solves, the kernel
+   within the plain version's rounding of (|hi| + |lo|) |d| column by
+   column and within 1e-12 of the f64 product, timed beside its byte
+   bound and one ``torch.bmm`` of the f64 hi + lo with k columns;
    Then three checks of the pieces that complete the port's parity with
    the JAX package: ``ring_dd`` through ``build_two_level(p, fine=)`` with
    a Schwarz level built once (phase 5's count, its solution bit-equal to
@@ -276,7 +283,9 @@ profiles ``setup_problem`` of islands 384^2 / 256 with the problem on the
 card under ``cProfile``, cold and warm: its wall seconds, the topology
 route it took, the cumulative seconds of its host stages
 (``build_topology`` and the others of SETUP_PROFILE_FNS) and the functions
-with the most time of their own.
+with the most time of their own; then the warm times of the SpMV, of
+the element matrices and of the Neumann matrices by either path on the
+card.
 
     python3 chip_smoke.py --bench
 
@@ -409,6 +418,10 @@ SOLUTION_TOL = 1e-6  # small-input card solution against the CPU's
 TIGHT_REDUCTION = 1e-12
 FLOOR_RES_MAX = 1e-10
 KERNEL_VS_F64_TOL = 1e-12  # kernel accumulates in f64
+# a k-column dd solve against k one-column solves of the same inverses:
+# the two kernels sum each row in another order (f64), and two exact
+# sparse refinement steps follow
+MULTI_RHS_COLS_TOL = 1e-10
 U32 = 2.0 ** -24  # f32 unit roundoff
 EIG_GAP_MAX = 1e-3  # LOBPCG against dense, tests/test_lobpcg.py:203
 
@@ -1243,6 +1256,91 @@ def check_kernel(ddmatvec, hi, lo, d, label):
     if not (e_plain <= bound and e_f64 <= KERNEL_VS_F64_TOL):
         fail(f"dd_matvec kernel disagrees with its plain version ({label})")
     return float((y - ref).abs().max()), pl
+
+
+MULTI_RHS = 8  # right-hand sides of the multi-RHS phase
+
+
+def multi_rhs_bound_ms(n_sub, q, k):
+    """Least time of Y = (hi + lo) @ D on the card for D (n_sub, q, k): the
+    q x q blocks of hi and lo read once (8 bytes per entry), D read and Y
+    written once, against 4 k FP64 flops per matrix entry; returns
+    (ms, "bytes" | "operations")."""
+    t_bytes = (8 * n_sub * q * q + 16 * n_sub * q * k) / HBM_BYTES_PER_S
+    t_ops = 4 * n_sub * q * q * k / FP64_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def multi_rhs_phase(ddmatvec, path, precs, flush_buf, gen, k=MULTI_RHS):
+    """The multi-RHS kernel on ``path``'s own double-single inverses (its
+    fine and coarse levels): ``BatchedInverseDD.solve`` of k right-hand
+    sides with its launch count zeroed just before and read just after,
+    its columns against k one-column solves; then the kernel against its
+    plain version (row by row within the plain version's rounding of
+    (|hi| + |lo|) |d|, each column) and the f64 product, and CUDA-event
+    times beside the byte bound and one ``torch.bmm`` of the f64 hi + lo
+    with k columns.  Returns one entry per shape."""
+    fine, coarse = precs
+    entries = []
+    for label, fac in (("fine", fine.factors), ("coarse", coarse.coarse)):
+        if not hasattr(fac, "inv_hi"):
+            fail(f"{path} {label}: no double-single inverse for the "
+                 f"multi-RHS phase")
+        hi, lo = fac.inv_hi, fac.inv_lo
+        n_sub, P, _ = hi.shape
+        B = torch.randn((n_sub, P, k), generator=gen, device=hi.device,
+                        dtype=torch.float64)
+        ddmatvec.dd_matmat_cuda.shapes.clear()
+        X = fac.solve(B)
+        torch.cuda.synchronize()
+        launches = sum(ddmatvec.dd_matmat_cuda.shapes.values())
+        e_cols = max(rel_err(X[..., j], fac.solve(B[..., j].contiguous()))
+                     for j in range(k))
+        Y = ddmatvec.dd_matmat_cuda(hi, lo, B)
+        ref = ddmatvec.dd_matvec_reference(hi, lo, B)
+        e_plain = e_f64 = 0.0
+        for j in range(k):
+            d = B[..., j].contiguous()
+            scale = f64_product(hi, lo, d, absolute=True)
+            e_plain = max(e_plain, float(
+                ((Y[..., j] - ref[..., j]).abs()
+                 / scale.clamp(min=torch.finfo(scale.dtype).tiny)).max()))
+            e_f64 = max(e_f64, rel_err(Y[..., j], f64_product(hi, lo, d)))
+        abs_err = float((Y - ref).abs().max())
+        bound = plain_rounding(P)
+        pl = ddmatvec.plan(n_sub, P, ddmatvec.sm_count(hi.device))
+        flush = flush_buf.zero_ if label == "coarse" else None
+        ms = time_ms(lambda: ddmatvec.dd_matmat_cuda(hi, lo, B), reps=5,
+                     flush=flush)
+        plain_ms = time_ms(lambda: ddmatvec.dd_matvec_reference(hi, lo, B),
+                           reps=5, flush=flush)
+        inv64 = hi.double()  # the same bytes as hi + lo
+        inv64 += lo
+        lib_ms = time_ms(lambda: torch.bmm(inv64, B), reps=5, flush=flush)
+        del inv64
+        b_ms, b_by = multi_rhs_bound_ms(n_sub, P, k)
+        print(f"multi-RHS kernel {path} {label} {tuple(hi.shape)} k={k} "
+              f"[{plan_str(pl)}]: BatchedInverseDD.solve launched it "
+              f"{launches} times, its columns {e_cols:.3e} from one-column "
+              f"solves; err vs plain {e_plain:.3e} of (|hi|+|lo|)|d| "
+              f"(rounding bound {bound:.3e}), rel err vs f64 {e_f64:.3e}; "
+              f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}), {b_ms / ms:.3f} of the bound; library call "
+              f"(torch.bmm of the f64 hi + lo, k columns) {lib_ms:.4f} ms",
+              flush=True)
+        if not (launches > 0 and e_cols <= MULTI_RHS_COLS_TOL
+                and e_plain <= bound and e_f64 <= KERNEL_VS_F64_TOL):
+            fail(f"the multi-RHS dd_matvec kernel disagrees ({path} {label})")
+        entries.append({
+            "path": path, "shape": [n_sub, P, P], "k": k,
+            "launches": launches, "max_abs_err": abs_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms, "share_of_bound": b_ms / ms,
+            "plan": pl._asdict(),
+        })
+        del B, X, Y, ref
+    return entries
 
 
 def is_lobpcg(path):
@@ -2308,7 +2406,34 @@ def setup_profile(device="cuda"):
         print("  most own time: " + "; ".join(
             f"{os.path.basename(f)}:{line} {fn} {tt:.3f} s"
             for (f, line, fn), (_, _, tt, _, _) in own), flush=True)
-        del p
+        if run == "cold":
+            del p
+    if dev.type == "cuda":
+        # two layers the bit-exact assembly staged: the SpMV's slot chain
+        # and the element matrices' staged sums, warm, CUDA events
+        x = torch.randn(p.A.n, dtype=torch.float64, device=dev,
+                        generator=torch.Generator(dev).manual_seed(0))
+        mv_ms = time_ms(lambda: p.A.mv(x))
+        from ddm_tpu_torch.fem.assemble import assemble_convection_diffusion
+
+        pr = p.disc.problem  # the kept (Ke, fe) of p.disc left aside
+        ke_ms = time_ms(lambda: assemble_convection_diffusion(
+            p.disc.quad, p.disc.xe, pr.alpha, pr.b, pr.c, pr.f), reps=5)
+        print(f"layer times (islands {size}^2): SpMV A.mv {mv_ms:.4f} ms "
+              f"({p.A.n} rows x {p.A.m} slots); element_matrices "
+              f"{ke_ms:.3f} ms ({p.disc.xe.shape[0]} elements)", flush=True)
+        # the Neumann matrices by the JAX package's subtraction path (the
+        # default here) and by the sum over the stamps, warm, synchronized
+        from ddm_tpu_torch.coarse.geneo import neumann_matrices
+
+        for method in ("subtract", "sum", "subtract", "sum"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = neumann_matrices(p, method=method)
+            torch.cuda.synchronize()
+            print(f"Neumann matrices by {method}: "
+                  f"{time.perf_counter() - t0:.3f} s", flush=True)
+            del out
 
 
 def run_solver_bench(dev):
@@ -2512,6 +2637,9 @@ def main():
         elif path != "geneo_dd":  # its one shape is ring_dd's fine shape
             entries += time_kernel(ddmatvec, path, r["M"].precs, r["shapes"],
                                    flush_buf, gen)
+        if path == "ring_dd":  # the multi-RHS kernel at ring_dd's shapes
+            multi = multi_rhs_phase(ddmatvec, path, r["M"].precs, flush_buf,
+                                    gen)
     r = None
 
     # the dense GEVP against LOBPCG on the same pencils (warm runs)
@@ -2598,6 +2726,14 @@ def main():
                                       "library_ms")},
         "launches_by_path": launches,
         "shapes": entries,
+    }, {
+        "name": "dd_matmat", "route": "cuda",
+        "source": "ddm_tpu_torch/csrc/dd_matvec.cu",
+        "replaces": "ddm_tpu/solvers/direct.py:158",
+        **{k: multi[0][k] for k in ("launches", "max_abs_err", "ms",
+                                    "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")},
+        "shapes": multi,
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,11 +16,13 @@ Neumann matrix comes from matrix data alone, and the constrained variant,
 whose eigenvectors are extended A_dir-harmonically into the interior
 (ConstraintGenEOCoarseSpace, coarse_spaces.hh:425-481).
 
-The Neumann matrices are assembled by summing the assembly stamps (element
-matrices; for DG also face blocks) inside each (region of each) subdomain —
-the TPU package's "sum" path; its subtraction fast path needs the rect
-canvas, which is not ported.  Indefinite pencils (DG) take the eigensolver's
-``spd=False`` branch.
+The Neumann matrices are assembled as the JAX package assembles them:
+where the stamps sum to the operator and the operator is a stencil, by
+subtraction (the extracted Dirichlet matrix minus the stamps that cross the
+region's boundary, in XLA's order, so both packages give the same bits on
+the CPU), else by summing the assembly stamps (element matrices; for DG
+also face blocks) inside each (region of each) subdomain.  Indefinite
+pencils (DG) take the eigensolver's ``spd=False`` branch.
 """
 
 from __future__ import annotations
@@ -33,11 +35,13 @@ from ..core.indexmaps import extraction_map
 from ..eigen import solve_gevp
 from ..eigen.params import EigensolverParams
 from ..fem.subassembly import (
+    crossing_stamp_lists,
     eliminate_dirichlet_dense,
     neumann_dense,
     neumann_plan,
     scale_matrix_with_pou,
     subdomain_stamp_lists,
+    subtract_stamps,
 )
 from ..obs.logger import scoped
 from ..precond.extract import extract_subdomain_dense, gather_subdomain
@@ -66,6 +70,79 @@ def _stamp_sum(p, groups, dof_mask) -> torch.Tensor:
     return A
 
 
+def _subtract_ok(p) -> bool:
+    """Whether the JAX package takes its subtraction path for ``p``: the
+    stamps sum to the operator (``stamps_cover_operator``) and the operator
+    is a stencil without deviating rows (there the JAX package's topology
+    takes its rectangular canvas, which the port does not need)."""
+    A = p.A
+    return (getattr(p.disc, "stamps_cover_operator", False)
+            and A.offsets is not None
+            and (A.fix_rows is None or A.fix_rows.numel() == 0))
+
+
+def _neumann_method(p, method: str) -> bool:
+    """True for the subtraction path: ``method`` "auto" (as the JAX
+    package chooses), "subtract" or "sum"."""
+    if method == "auto":
+        return _subtract_ok(p)
+    if method == "subtract":
+        if not getattr(p.disc, "stamps_cover_operator", False):
+            raise ValueError("subtraction path preconditions not met")
+        return True
+    if method != "sum":
+        raise ValueError(f"unknown Neumann method '{method}'")
+    return False
+
+
+def _dirichlet_extracted(p) -> torch.Tensor:
+    """The overlapping Dirichlet matrices A_dir of ``p.A`` (in its
+    variables), zero on the padding, contiguous."""
+    topo, device = p.topo, p.device
+    local_cols = torch.as_tensor(
+        extraction_map(topo, p.A.cols.cpu().numpy()).astype(np.int64),
+        device=device)
+    return extract_subdomain_dense(
+        p.A, torch.as_tensor(topo.sub2glob.astype(np.int64), device=device),
+        torch.as_tensor(topo.valid, device=device), local_cols,
+        unit_padding_diag=False).contiguous()
+
+
+def _masked_subtract(p, A_dir, dof_mask, groups) -> torch.Tensor:
+    """Region Neumann matrix by subtraction: A_dir restricted to the masked
+    dof pairs (``dof_mask`` host bool (n_sub, n_pad), None for the whole
+    subdomain) minus the stamps that cross the region's boundary, scaled
+    into the variables of ``p.A`` on the small stamp blocks.  Consumes
+    A_dir when ``dof_mask`` is None."""
+    topo, device = p.topo, p.device
+    if dof_mask is None:
+        A = A_dir
+    else:
+        bm = torch.as_tensor(np.asarray(dof_mask, bool) & topo.valid,
+                             device=device)
+        A = torch.where(bm[:, :, None] & bm[:, None, :], A_dir, 0.0)
+    s_sub = None
+    if p.scale is not None:
+        sub2glob = torch.as_tensor(topo.sub2glob.astype(np.int64),
+                                   device=device)
+        s_sub = gather_subdomain(p.scale, sub2glob)
+    for dofs, K in groups:
+        ce, cl = crossing_stamp_lists(dofs, topo, dof_mask=dof_mask)
+        nl = K.shape[-1]
+        Kp = torch.cat([K, K.new_zeros((1, nl, nl))])
+        Ks = Kp[torch.as_tensor(ce, device=device)]  # (n_sub, max_e, nl, nl)
+        if s_sub is not None:
+            sp = torch.cat([s_sub, s_sub.new_zeros((s_sub.shape[0], 1))],
+                           dim=1)
+            n_sub, max_e, _ = cl.shape
+            sl = torch.gather(sp, 1, torch.as_tensor(
+                cl.astype(np.int64), device=device).reshape(n_sub, -1)
+            ).reshape(n_sub, max_e, nl)
+            Ks = Ks * sl[..., :, None] * sl[..., None, :]
+        A = subtract_stamps(A, Ks, cl)
+    return A
+
+
 def dirichlet_mask_sub(p) -> torch.Tensor:
     """(n_sub, n_pad) bool on ``p.device``: the subdomain Dirichlet masks."""
     topo = p.topo
@@ -75,19 +152,29 @@ def dirichlet_mask_sub(p) -> torch.Tensor:
     return dmask & torch.as_tensor(topo.valid, device=p.device)
 
 
-def neumann_matrices(p, region_b: str = "overlap"):
+def neumann_matrices(p, region_b: str = "overlap", method: str = "auto"):
     """(A_neu, B_neu) dense batches for DDMProblem ``p``, in the same
     (optionally equilibrated) variables as ``p.A``.  ``region_b``:
     "overlap" makes B_neu the Neumann matrix of the overlap region (dofs
     with boundary distance <= 2*overlap, reference NeumannRegion::Overlap),
-    "all" makes B == A (without A's unit diagonal on the padding)."""
+    "all" makes B == A (without A's unit diagonal on the padding).
+    ``method``: "auto" takes the subtraction path where the JAX package
+    does, "subtract" and "sum" force a path."""
     topo = p.topo
     with scoped("Eigensolver", "assemble Neumann", p.device):
         groups = p.disc.neumann_stamps()
-        A_neu = _stamp_sum(p, groups, None)
         B_neu = None
-        if region_b != "all":
-            B_neu = _stamp_sum(p, groups, topo.bdist <= 2 * topo.overlap)
+        ovlp = topo.bdist <= 2 * topo.overlap
+        if _neumann_method(p, method):
+            A_dir = _dirichlet_extracted(p)
+            if region_b != "all":
+                B_neu = _masked_subtract(p, A_dir, ovlp, groups)
+            A_neu = _masked_subtract(p, A_dir, None, groups)
+            del A_dir
+        else:
+            A_neu = _stamp_sum(p, groups, None)
+            if region_b != "all":
+                B_neu = _stamp_sum(p, groups, ovlp)
         del groups
         dmask_sub = dirichlet_mask_sub(p)
         pad = ~torch.as_tensor(topo.valid, device=p.device)
@@ -136,13 +223,18 @@ def algebraic_neumann(p):
     return A_dir - torch.diag_embed(corr), A_dir
 
 
-def region_neumann(p, dof_mask) -> torch.Tensor:
+def region_neumann(p, dof_mask, method: str = "auto") -> torch.Tensor:
     """Neumann matrix of a sub-region: the element stamps fully inside the
     per-subdomain dof mask (host bool (n_sub, n_pad)), kept at full padded
     size with zeros outside the region, Dirichlet rows/cols eliminated
-    (reference: the ring assembly path, examples/pdelab_helper.hh:343-396;
-    the JAX package's ``method="sum"``)."""
-    A = _stamp_sum(p, p.disc.neumann_stamps(), np.asarray(dof_mask, bool))
+    (reference: the ring assembly path, examples/pdelab_helper.hh:343-396).
+    ``method`` as in :func:`neumann_matrices`."""
+    groups = p.disc.neumann_stamps()
+    mask = np.asarray(dof_mask, bool)
+    if _neumann_method(p, method):
+        A = _masked_subtract(p, _dirichlet_extracted(p), mask, groups)
+    else:
+        A = _stamp_sum(p, groups, mask)
     return eliminate_dirichlet_dense(A, dirichlet_mask_sub(p), inplace=True)
 
 

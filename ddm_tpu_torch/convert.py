@@ -86,6 +86,26 @@ def discretization_from_numpy(grid, problem, n_comp: int, dirichlet_mask,
     return disc
 
 
+def _stencil_slots(cols: np.ndarray):
+    """(offsets, fix_rows) of an ELL layout (n, m), padding == n, as
+    ``EllPattern`` records them: a slot whose entries all sit at one column
+    offset from their row keeps it, the others count 0 and their rows are
+    the deviating ``fix_rows``; (None, None) when no slot is aligned (a
+    packed pattern).  The SpMV then sums each row as the JAX package's."""
+    n, m = cols.shape
+    shift = cols - np.arange(n)[:, None]
+    present = cols < n
+    offsets, fix = [], np.zeros(n, bool)
+    for k in range(m):
+        d = np.unique(shift[present[:, k], k])
+        offsets.append(int(d[0]) if d.size == 1 else None)
+        if d.size != 1:
+            fix |= present[:, k]
+    if all(o is None for o in offsets):
+        return None, None
+    return tuple(o or 0 for o in offsets), np.nonzero(fix)[0]
+
+
 def problem_from_numpy(
     colsT, valsT, rhs, g, scale, pou, sub2glob, valid, bdist, boundary,
     dualT, overlap: int, *, device, ptree: ParamTree | None = None,
@@ -97,8 +117,11 @@ def problem_from_numpy(
     is only needed by the Neumann assembly."""
     device = torch.device(device)
     cols = np.ascontiguousarray(np.asarray(colsT).T)
+    offsets, fix_rows = _stencil_slots(cols)
     A = SparseELL(cols=_i64(cols, device),
-                  vals=_f64(np.ascontiguousarray(np.asarray(valsT).T), device))
+                  vals=_f64(np.ascontiguousarray(np.asarray(valsT).T), device),
+                  offsets=offsets, fix_rows=None if fix_rows is None
+                  else _i64(fix_rows, device))
     n = cols.shape[0]
     topo = topology_from_numpy(sub2glob, valid, bdist, boundary, overlap, n,
                                dualT=dualT)

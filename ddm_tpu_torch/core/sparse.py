@@ -2,11 +2,12 @@
 
 Counterpart of ``ddm_tpu/core/sparse.py``.  Every row holds ``m`` (column,
 value) slots; padding slots point at the dummy column ``n`` with value 0,
-so SpMV is one gather, one multiply and one row sum.  The TPU package's
-slot-major (transposed) layout, its stencil-offset slot assignment and its
-tiled gathers were TPU layout rules and are not carried over: the layout
-here is plain row-major ``(n, m)`` with the rows' entries packed in column
-order.
+so SpMV is a gather and a multiply-add per slot.  The slots are the JAX
+package's (its stencil-offset assignment where the pattern is a stencil,
+else the rows' entries packed in column order), so each row sums in the
+same order and gives the same bits on the CPU; the TPU package's
+slot-major (transposed) layout and tiled gathers were TPU layout rules and
+are not carried over: the layout here is row-major ``(n, m)``.
 
 Assembly sums several element contributions into one slot.  On a GPU an
 atomic scatter-add sums them in a different order on every run, so every
@@ -35,16 +36,18 @@ class SumPlan:
     n_src: int
 
     @staticmethod
-    def build(src_idx: np.ndarray, tgt_idx: np.ndarray, n_src: int,
+    def build(src_idx: np.ndarray | torch.Tensor,
+              tgt_idx: np.ndarray | torch.Tensor, n_src: int,
               device) -> "SumPlan":
         """Plan for adding ``src[src_idx[i]]`` into ``out[tgt_idx[i]]``.
-        The index arrays come from the host; the sort that groups them by
-        target (then by source) runs on ``device``, where tens of millions
-        of entries (3-D Neumann sums) take milliseconds."""
-        src = torch.as_tensor(np.asarray(src_idx, dtype=np.int64).reshape(-1),
-                              device=device)
-        tgt = torch.as_tensor(np.asarray(tgt_idx, dtype=np.int64).reshape(-1),
-                              device=device)
+        The index arrays come from the host or lie on ``device``; the sort
+        that groups them by target (then by source) runs on ``device``,
+        where tens of millions of entries (3-D Neumann sums) take
+        milliseconds."""
+        src = torch.as_tensor(src_idx, dtype=torch.int64,
+                              device=device).reshape(-1)
+        tgt = torch.as_tensor(tgt_idx, dtype=torch.int64,
+                              device=device).reshape(-1)
         # two stable sorts = one lexicographic (target, source) order
         src, order = torch.sort(src, stable=True)
         tgt, order = torch.sort(tgt[order], stable=True)
@@ -62,9 +65,14 @@ class SumPlan:
         return SumPlan(targets=targets, dual=dual, n_src=n_src)
 
     def sums(self, src: torch.Tensor) -> torch.Tensor:
-        """(U,) per-target sums of the flattened ``src``."""
+        """(U,) per-target sums of the flattened ``src``, each added left to
+        right in ascending source order, as the JAX package's scatter-adds
+        (``.at[].add``) sum them on XLA's CPU."""
         flat = torch.cat([src.reshape(-1), src.new_zeros(1)])
-        return flat[self.dual].sum(dim=1)
+        out = flat[self.dual[:, 0]]
+        for k in range(1, self.dual.shape[1]):
+            out = out + flat[self.dual[:, k]]
+        return out
 
     def scatter(self, src: torch.Tensor, size: int) -> torch.Tensor:
         """Dense (size,) result: the per-target sums, zeros elsewhere."""
@@ -79,10 +87,15 @@ class SparseELL:
 
     cols: (n, m) int64, padding slots == n (dummy column)
     vals: (n, m) float64
+    offsets: the column offset of each slot (col = row + offsets[k]) where
+        the pattern is a stencil (:meth:`EllPattern.from_coo`), else None
+    fix_rows: (n_fix,) int64 rows of a stencil pattern that deviate from it
     """
 
     cols: torch.Tensor
     vals: torch.Tensor
+    offsets: tuple | None = None
+    fix_rows: torch.Tensor | None = None
 
     @property
     def n(self) -> int:
@@ -92,12 +105,46 @@ class SparseELL:
     def m(self) -> int:
         return self.cols.shape[1]
 
-    def mv(self, x: torch.Tensor) -> torch.Tensor:
-        """y = A @ x.  x: (n,) or (n, k)."""
+    def mv(self, x: torch.Tensor, fused: bool = True) -> torch.Tensor:
+        """y = A @ x.  x: (n,) or (n, k).
+
+        Each row is summed over its slots in slot order, as the JAX
+        package's SpMV is on XLA's CPU, so the two give the same bits
+        there.  ``fused`` (as inside the JAX package's jitted solves) adds
+        each product with one rounding, a fused multiply-add
+        (``torch.addcmul``); a stencil row starts with slot 0 fused into the
+        product of slot 1, the other rows with the product of slot 0.
+        ``fused=False`` (as the JAX package's eager calls) rounds every
+        product, then adds.  No atomics: the order is fixed on every
+        device."""
         xp = torch.cat([x, x.new_zeros((1,) + x.shape[1:])])
-        if x.ndim == 1:
-            return (self.vals * xp[self.cols]).sum(dim=1)
-        return torch.einsum("nm,nmk->nk", self.vals, xp[self.cols])
+        xg = xp[self.cols]  # (n, m) or (n, m, k): one gather for all slots
+
+        def slot(k, rows=slice(None)):
+            v = self.vals[rows, k]
+            return (v if x.ndim == 1 else v[:, None]), xg[rows, k]
+
+        def chain(rows=slice(None), stencil=False):
+            if not fused:
+                y = torch.mul(*slot(0, rows))
+                for k in range(1, self.m):
+                    y = y + torch.mul(*slot(k, rows))
+                return y
+            if stencil and self.m > 1:
+                y = torch.addcmul(torch.mul(*slot(1, rows)), *slot(0, rows))
+                first = 2
+            else:
+                y, first = torch.mul(*slot(0, rows)), 1
+            for k in range(first, self.m):
+                y = torch.addcmul(y, *slot(k, rows))
+            return y
+
+        if self.offsets is None:
+            return chain()
+        y = chain(stencil=True)
+        if self.fix_rows is not None and self.fix_rows.numel():
+            y[self.fix_rows] = chain(self.fix_rows)
+        return y
 
     def diagonal(self) -> torch.Tensor:
         row = torch.arange(self.n, device=self.cols.device)[:, None]
@@ -113,12 +160,14 @@ class EllPattern:
     """Host-side symbolic pattern + assembly plan.
 
     n : matrix size
-    m : padded row width (max nnz per row)
+    m : padded row width
     cols : (n, m) int64 column ids, padding == n (host)
     coo2slot : (n_coo,) int64 flat row-major ELL slot (row * m + pos) of
                each COO entry passed to :meth:`from_coo`, in original order
     rows_csr / cols_csr / slot_csr : the unique entries in CSR order and
                their flat ELL slots
+    offsets / fix_rows : the stencil layout (:meth:`_aligned_slots`), or
+               None for a packed pattern
     """
 
     n: int
@@ -128,6 +177,48 @@ class EllPattern:
     rows_csr: np.ndarray
     cols_csr: np.ndarray
     slot_csr: np.ndarray
+    offsets: tuple | None = None
+    fix_rows: np.ndarray | None = None
+
+    @staticmethod
+    def _aligned_slots(urows, ucols, n: int, m_packed: int):
+        """The JAX package's slot assignment for stencil patterns: entries
+        whose column offset ``col - row`` is common get the slot of that
+        offset (ascending), so slot k holds column ``row + offsets[k]``
+        wherever present and a grid-boundary row leaves the missing
+        neighbours' slots as padding; rare offsets pack into trailing slots
+        and their rows are ``fix_rows``.  The same slots give the same
+        summation order in each row (:meth:`SparseELL.mv`).  Returns
+        (ent_slot, m, offsets, fix_rows), or None when the pattern is not
+        a stencil (the rows' entries are then packed in column order)."""
+        ovals, oinv, ocounts = np.unique(
+            ucols - urows, return_inverse=True, return_counts=True)
+        aligned_sel = (ocounts >= max(32, 0.05 * n)) & (
+            np.abs(ovals) <= max(1, n // 2))
+        n_aligned = int(aligned_sel.sum())
+        if not (0 < n_aligned <= 32):
+            return None
+        slot_of_oval = np.full(ovals.size, -1, np.int64)
+        slot_of_oval[aligned_sel] = np.arange(n_aligned)
+        ent_slot = slot_of_oval[oinv.reshape(-1)]
+        extra = ent_slot < 0
+        if extra.any():
+            erows = urows[extra]
+            er_nnz = np.bincount(erows, minlength=n)
+            n_extra = int(er_nnz.max())
+            estart = np.zeros(n + 1, dtype=np.int64)
+            np.cumsum(er_nnz, out=estart[1:])
+            # the unique entries are row-major: a row's extras are adjacent
+            ent_slot[extra] = n_aligned + np.arange(erows.size) - estart[erows]
+            fix_rows = np.unique(erows)
+        else:
+            n_extra = 0
+            fix_rows = np.zeros((0,), np.int64)
+        m = n_aligned + n_extra
+        if m > m_packed + 8 or fix_rows.size > 0.1 * n:
+            return None
+        offsets = tuple(int(d) for d in ovals[aligned_sel]) + (0,) * n_extra
+        return ent_slot, m, offsets, fix_rows
 
     @staticmethod
     def from_coo(rows: np.ndarray, cols: np.ndarray, n: int) -> "EllPattern":
@@ -138,15 +229,30 @@ class EllPattern:
         ucols = uniq % n
         row_nnz = np.bincount(urows, minlength=n)
         m = int(row_nnz.max()) if row_nnz.size else 1
-        row_start = np.zeros(n + 1, dtype=np.int64)
-        np.cumsum(row_nnz, out=row_start[1:])
-        pos = np.arange(uniq.size) - row_start[urows]
+        aligned = EllPattern._aligned_slots(urows, ucols, n, m)
+        if aligned is not None:
+            pos, m, offsets, fix_rows = aligned
+        else:
+            row_start = np.zeros(n + 1, dtype=np.int64)
+            np.cumsum(row_nnz, out=row_start[1:])
+            pos = np.arange(uniq.size) - row_start[urows]
+            offsets = fix_rows = None
         slot = urows * m + pos
         ell_cols = np.full((n, m), n, dtype=np.int64)
         ell_cols[urows, pos] = ucols
         return EllPattern(
             n=n, m=m, cols=ell_cols, coo2slot=slot[inverse.reshape(-1)],
             rows_csr=urows, cols_csr=ucols, slot_csr=slot,
+            offsets=offsets, fix_rows=fix_rows,
+        )
+
+    def _ell(self, vals: torch.Tensor) -> SparseELL:
+        device = vals.device
+        return SparseELL(
+            cols=torch.as_tensor(self.cols, device=device), vals=vals,
+            offsets=self.offsets,
+            fix_rows=None if self.fix_rows is None
+            else torch.as_tensor(self.fix_rows, device=device),
         )
 
     def assembly_plan(self, device) -> SumPlan:
@@ -159,10 +265,7 @@ class EllPattern:
     def assemble(self, coo_vals: torch.Tensor, plan: SumPlan) -> SparseELL:
         """Sum COO values (in from_coo order) into a SparseELL."""
         flat = plan.scatter(coo_vals, self.n * self.m)
-        return SparseELL(
-            cols=torch.as_tensor(self.cols, device=coo_vals.device),
-            vals=flat.reshape(self.n, self.m),
-        )
+        return self._ell(flat.reshape(self.n, self.m))
 
     def from_scipy_vals(self, sp_csr, device) -> SparseELL:
         """A SparseELL on ``device`` carrying the values of a scipy matrix
@@ -172,10 +275,8 @@ class EllPattern:
         a = sps.csr_matrix(sp_csr)
         vals = np.zeros((self.n * self.m,))
         vals[self.slot_csr] = np.asarray(a[self.rows_csr, self.cols_csr]).ravel()
-        return SparseELL(
-            cols=torch.as_tensor(self.cols, device=device),
-            vals=torch.as_tensor(vals.reshape(self.n, self.m), device=device),
-        )
+        return self._ell(torch.as_tensor(vals.reshape(self.n, self.m),
+                                         device=device))
 
     def to_scipy(self, ell: SparseELL):
         import scipy.sparse as sps
@@ -191,7 +292,9 @@ def jacobi_equilibrate(ell: SparseELL, b: torch.Tensor):
     b' = D^{-1/2} b.  Returns (A', b', scale) with ``scale = D^{-1/2}``; the
     solution transforms back as x = scale * x'."""
     diag = ell.diagonal()
-    scale = torch.where(diag > 0, 1.0 / torch.sqrt(torch.abs(diag)), 1.0)
+    # rsqrt: on the CPU it rounds 1/sqrt as the JAX package's ops do (the
+    # CPU torch.sqrt may miss the correctly rounded root by one ulp)
+    scale = torch.where(diag > 0, torch.rsqrt(torch.abs(diag)), 1.0)
     sp = torch.cat([scale, scale.new_zeros(1)])
     vals = ell.vals * scale[:, None] * sp[ell.cols]
     return dataclasses.replace(ell, vals=vals), b * scale, scale

@@ -9,6 +9,16 @@
 //   d      : (n_sub, q) float64, q <= P (only the leading q x q block is read)
 //   y      : (n_sub, q) float64
 //
+// and, for k right-hand sides at once (ddm_tpu/solvers/direct.py:dd_matvec
+// with d of shape (n_sub, p, k), which the TPU package computes in XLA),
+// ddm_dd_matmat: d and y (n_sub, q, k) float64, row-major.  The same plan
+// and the same row tiles; each block stages its chunk of up to kMaxRhs
+// columns of d and forms their dot products from one read of its hi/lo
+// rows (the bytes of hi and lo are read once for all of them, so the
+// bound stays the matrix's 8 bytes per entry).  A warp takes kRowsPerWarp
+// rows at once, so each value of d that it reads from shared memory
+// serves all of them.  More columns take one launch per group.
+//
 // What bounds it on an H100: bytes.  Every entry of hi and lo is read once
 // and used for two multiply-adds, 8 bytes per 4 flops; at the fine shape
 // (256, 848, 848) that is 1.47 GB per call, about 0.44 ms at 3.35 TB/s; at
@@ -64,6 +74,8 @@ namespace {
 constexpr int kWarps = 8;       // warps per block (ddmatvec.py: LADDER's 8 rows)
 constexpr int kMaxCluster = 8;  // portable cluster size (ddmatvec.py: MAX_CLUSTER)
 constexpr int kUnroll = 4;      // 16-byte loads of hi and of lo in flight per lane
+constexpr int kMaxRhs = 8;      // right-hand sides per multi-RHS launch
+constexpr int kRowsPerWarp = 2;  // rows a warp of the multi-RHS kernel takes at once
 
 // A 16-byte load of data read once: read-only path, no L1 allocation, and
 // the L2 fetches the whole 256-byte block around it.
@@ -184,6 +196,148 @@ dd_matvec_kernel(const float* __restrict__ hi, const float* __restrict__ lo,
   cluster.sync();  // partners keep their shared memory until rank 0 has read it
 }
 
+
+// One lane's share of the K sums sum_c (hi[c] + lo[c]) * dv[j][c] over c
+// in [0, n), j < K, for kRowsPerWarp rows at once (rows r < live): the row
+// chunks h[r], l[r] (global) against the K columns of their d chunk
+// (shared, column j at dv + j * ld).  Each value of d read from shared
+// memory serves every row, and every row's loads are in flight together.
+template <bool kVec4, int K>
+__device__ __forceinline__ void rows_chunk_k(
+    const float* const* h, const float* const* l, int live, const double* dv,
+    int ld, int n, int lane, double (&acc)[kRowsPerWarp][K]) {
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r)
+#pragma unroll
+    for (int j = 0; j < K; ++j) acc[r][j] = 0.0;
+  int c0 = 0;
+  if (kVec4) {
+    const int n4 = n >> 2;
+    for (int i = lane; i < n4; i += 32) {
+      float4 a[kRowsPerWarp], b[kRowsPerWarp];
+#pragma unroll
+      for (int r = 0; r < kRowsPerWarp; ++r) {
+        const bool on = r < live;
+        a[r] = on ? ld_stream(reinterpret_cast<const float4*>(h[r]) + i)
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+        b[r] = on ? ld_stream(reinterpret_cast<const float4*>(l[r]) + i)
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        const double2 x01 = *reinterpret_cast<const double2*>(dv + j * ld + 4 * i);
+        const double2 x23 = *reinterpret_cast<const double2*>(dv + j * ld + 4 * i + 2);
+#pragma unroll
+        for (int r = 0; r < kRowsPerWarp; ++r) {
+          double t = acc[r][j];
+          t = fma((double)a[r].x, x01.x, t);
+          t = fma((double)b[r].x, x01.x, t);
+          t = fma((double)a[r].y, x01.y, t);
+          t = fma((double)b[r].y, x01.y, t);
+          t = fma((double)a[r].z, x23.x, t);
+          t = fma((double)b[r].z, x23.x, t);
+          t = fma((double)a[r].w, x23.y, t);
+          t = fma((double)b[r].w, x23.y, t);
+          acc[r][j] = t;
+        }
+      }
+    }
+    c0 = n4 << 2;
+  }
+  for (int c = c0 + lane; c < n; c += 32) {
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      if (r < live) {
+        const double a = (double)__ldg(h[r] + c), b = (double)__ldg(l[r] + c);
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+          acc[r][j] = fma(a, dv[j * ld + c], acc[r][j]);
+          acc[r][j] = fma(b, dv[j * ld + c], acc[r][j]);
+        }
+      }
+    }
+  }
+}
+
+// As dd_matvec_kernel, for columns [j0, j0 + K) of k right-hand sides:
+// d and y are (n_sub, q, k) row-major.  Shared memory: the chunk of the K
+// columns of d, column-major (cols doubles each, cols even so that every
+// column starts 16-byte aligned), then rows x K partials.  Each warp takes
+// kRowsPerWarp consecutive rows at a time.
+template <bool kVec4, int K>
+__global__ void __launch_bounds__(kWarps * 32)
+dd_matmat_kernel(const float* __restrict__ hi, const float* __restrict__ lo,
+                 const double* __restrict__ d, double* __restrict__ y,
+                 int P, int q, int k, int j0, int rows, int chunks, int cols) {
+  extern __shared__ double smem[];
+  const int ld = (cols + 1) & ~1;  // even: 16-byte aligned columns
+  double* ds = smem;            // K x ld: this chunk of d's K columns
+  double* part = smem + K * ld;  // rows x K: this block's partial sums
+  const int s = blockIdx.y;
+  const int tile = blockIdx.x / chunks;
+  const int chunk = blockIdx.x % chunks;
+  const int c_begin = chunk * cols;
+  const int n = min(cols, q - c_begin);
+  const int r_begin = tile * rows;
+  const int n_rows = min(rows, q - r_begin);
+
+  const double* d_s = d + ((size_t)s * q + c_begin) * k + j0;
+  for (int t = threadIdx.x; t < n * K; t += blockDim.x) {
+    const int c = t / K, j = t % K;
+    ds[j * ld + c] = d_s[(size_t)c * k + j];
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  double* y_s = y + ((size_t)s * q + r_begin) * k + j0;
+  for (int i0 = warp * kRowsPerWarp; i0 < n_rows; i0 += kWarps * kRowsPerWarp) {
+    const int live = min(kRowsPerWarp, n_rows - i0);
+    const float* h[kRowsPerWarp];
+    const float* l[kRowsPerWarp];
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      const int i = min(i0 + r, n_rows - 1);  // rows past live are not read
+      const size_t off = ((size_t)s * P + r_begin + i) * (size_t)P + c_begin;
+      h[r] = hi + off;
+      l[r] = lo + off;
+    }
+    double acc[kRowsPerWarp][K];
+    rows_chunk_k<kVec4, K>(h, l, live, ds, ld, n, lane, acc);
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r)
+#pragma unroll
+      for (int j = 0; j < K; ++j)
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          acc[r][j] += __shfl_down_sync(0xffffffffu, acc[r][j], o);
+    if (lane == 0) {
+#pragma unroll
+      for (int r = 0; r < kRowsPerWarp; ++r) {
+        if (r < live) {
+#pragma unroll
+          for (int j = 0; j < K; ++j) {
+            if (chunks == 1) y_s[(size_t)(i0 + r) * k + j] = acc[r][j];
+            else part[(i0 + r) * K + j] = acc[r][j];
+          }
+        }
+      }
+    }
+  }
+  if (chunks == 1) return;  // uniform over the grid
+
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  if (cluster.block_rank() == 0) {
+    for (int t = threadIdx.x; t < n_rows * K; t += blockDim.x) {
+      double acc = 0.0;
+      for (int r = 0; r < chunks; ++r) acc += cluster.map_shared_rank(part, r)[t];
+      y_s[(size_t)(t / K) * k + t % K] = acc;
+    }
+  }
+  cluster.sync();
+}
+
 }  // namespace
 
 // The plan (rows, chunks, cols) comes from ddmatvec.py:plan; it must tile
@@ -229,4 +383,89 @@ extern "C" int ddm_dd_matvec(const float* hi, const float* lo, const double* d,
     if (e != cudaSuccess) return (int)e;
   }
   return (int)cudaGetLastError();
+}
+
+namespace {
+
+// Launch `kernel` on the plan's grid, as a cluster of `chunks` blocks when
+// the columns are split.
+template <typename Kernel, typename... Args>
+cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, int chunks,
+                   cudaStream_t st, Args... args) {
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  if (chunks == 1) {
+    kernel<<<grid, dim3(kWarps * 32), smem, st>>>(args...);
+    return cudaGetLastError();
+  }
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = chunks;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kWarps * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+template <bool kVec4, int K>
+cudaError_t launch_matmat(const float* hi, const float* lo, const double* d,
+                          double* y, int n_sub, int P, int q, int k, int j0,
+                          int rows, int chunks, int cols, cudaStream_t st) {
+  const dim3 grid((q + rows - 1) / rows * chunks, n_sub);
+  const size_t smem = (size_t)K * (((cols + 1) & ~1) + rows) * sizeof(double);
+  return launch(dd_matmat_kernel<kVec4, K>, grid, smem, chunks, st, hi, lo,
+                d, y, P, q, k, j0, rows, chunks, cols);
+}
+
+template <bool kVec4>
+cudaError_t launch_group(int K, const float* hi, const float* lo,
+                         const double* d, double* y, int n_sub, int P, int q,
+                         int k, int j0, int rows, int chunks, int cols,
+                         cudaStream_t st) {
+  switch (K) {
+#define DDM_RHS_CASE(N) \
+    case N: return launch_matmat<kVec4, N>(hi, lo, d, y, n_sub, P, q, k, j0, \
+                                           rows, chunks, cols, st);
+    DDM_RHS_CASE(1) DDM_RHS_CASE(2) DDM_RHS_CASE(3) DDM_RHS_CASE(4)
+    DDM_RHS_CASE(5) DDM_RHS_CASE(6) DDM_RHS_CASE(7) DDM_RHS_CASE(8)
+#undef DDM_RHS_CASE
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// Columns [j0, j0 + n_rhs) of y = (hi + lo) @ d for k right-hand sides,
+// d and y (n_sub, q, k) float64 row-major, in one launch on the plan of
+// ddm_dd_matvec; n_rhs <= kMaxRhs, and (cols + rows) * n_rhs doubles must
+// fit in a block's shared memory (ddmatvec.py:dd_matmat_cuda groups the
+// columns).  Returns a cudaError_t.
+extern "C" int ddm_dd_matmat(const float* hi, const float* lo, const double* d,
+                             double* y, int n_sub, int P, int q, int k, int j0,
+                             int n_rhs, int rows, int chunks, int cols,
+                             void* stream) {
+  if (n_sub <= 0 || q <= 0 || n_rhs <= 0) return (int)cudaSuccess;
+  if (rows < 1 || chunks < 1 || chunks > kMaxCluster || cols < 1 ||
+      (long long)cols * chunks < q || (long long)cols * (chunks - 1) >= q ||
+      (chunks > 1 && cols % 4 != 0) || n_rhs > kMaxRhs || j0 < 0 ||
+      j0 + n_rhs > k ||
+      (long long)(cols + 1 + rows) * n_rhs * sizeof(double) > 232448)
+    return (int)cudaErrorInvalidValue;
+  const bool vec4 = (P % 4 == 0) && ((uintptr_t)hi % 16 == 0) &&
+                    ((uintptr_t)lo % 16 == 0);
+  cudaStream_t st = (cudaStream_t)stream;
+  return (int)(vec4 ? launch_group<true>(n_rhs, hi, lo, d, y, n_sub, P, q, k,
+                                         j0, rows, chunks, cols, st)
+                    : launch_group<false>(n_rhs, hi, lo, d, y, n_sub, P, q, k,
+                                          j0, rows, chunks, cols, st));
 }

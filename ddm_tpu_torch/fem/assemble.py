@@ -16,9 +16,11 @@ and (reference: dune-pdelab LinearElasticity, examples/linearelasticity.cc)
 on P1 triangles and tetrahedra (degree-2 rules), Q1 quadrilaterals and
 hexahedra (tensor-product 2-point Gauss), P2 triangles (``tri2``, the
 degree-4 Dunavant 6-point rule) and Q2 quadrilaterals (``quad2``, 3x3
-Gauss), whose extra dofs ``fem/highorder.py`` numbers.  The Jacobian is inverted by
-``torch.linalg.inv``/``det`` where the JAX package uses closed forms; the
-element matrices agree to 1e-13 relative.
+Gauss), whose extra dofs ``fem/highorder.py`` numbers.  Every stage is
+formed as the JAX package forms it (the closed-form Jacobian inverse, each
+contraction as staged products summed in XLA's CPU order, ``_SUM_TREES``),
+so on the CPU the two packages give the same bits; the card runs the same
+staged code in the same fixed order.
 """
 
 from __future__ import annotations
@@ -154,38 +156,138 @@ class ElementQuadrature:
         self.dphi = t(dphi)  # (q, nd, d)
 
 
-def _two_sum(a, b):
-    """(s, e) with s = fl(a + b) and s + e == a + b exactly (Knuth)."""
-    s = a + b
-    bb = s - a
-    return s, (a - (s - bb)) + (b - bb)
+def _strided(k: int, s: int = 1, n: int = 0):
+    """The summation tree of ``k`` terms that takes the first ``n`` as
+    ``s`` interleaved running sums (term j into sum j mod s), adds those
+    pairwise ((s0 + s1) + (s2 + s3)), then the other terms one at a time.
+    ``_strided(k)`` is the plain left-to-right sum."""
+    if n == 0:
+        return tuple(range(k))
+    parts = [tuple(range(j, n, s)) for j in range(s)]
+    while len(parts) > 1:
+        parts = [(parts[i], parts[i + 1]) for i in range(0, len(parts), 2)]
+    return (parts[0],) + tuple(range(n, k))
 
 
-def _two_prod(a, b):
-    """(p, e) with p = fl(a * b) and p + e == a * b exactly (Dekker's
-    split; no fused operation needed, so every device gives the same)."""
-    def split(x):
-        c = 134217729.0 * x  # 2**27 + 1
-        hi = c - (c - x)
-        return hi, x - hi
+def _tree_sum(tree, factors, fused: bool = False):
+    """sum_k a_k * b_k over the leaves k of ``tree`` with ``(a_k, b_k) =
+    factors(k)``, added in the tree's order: a tuple adds its members left
+    to right, a leaf is one product.  With ``fused`` every leaf added to a
+    partial sum is added as one fused multiply-add, torch's ``addcmul``
+    (one on the CPU, held to the JAX package's bits by
+    tests/test_torch_assembly_bitwise.py, and on the card,
+    tests/test_torch_kernels.py::test_cuda_addcmul_is_a_fused_multiply_add)."""
+    def leaf(k):
+        a, b = factors(k)
+        return a * b
 
-    p = a * b
-    ah, al = split(a)
-    bh, bl = split(b)
-    return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    def node(t):
+        if isinstance(t, int):
+            return leaf(t)
+        acc = node(t[0])
+        for u in t[1:]:
+            if fused and isinstance(u, int):
+                acc = torch.addcmul(acc, *factors(u))
+            else:
+                acc = acc + node(u)
+        return acc
+
+    return node(tree)
 
 
-def _fma(a, b, c):
-    """a * b + c rounded once, as a fused multiply-add: the exact product
-    and sum, with the low part added rounded to odd (Boldo and Melquiond's
-    emulation), then one rounding to nearest."""
-    uh, ul = _two_prod(a, b)
-    th, tl = _two_sum(c, uh)
-    s, e = _two_sum(tl, ul)
-    even = (s.view(torch.int64) & 1) == 0
-    away = torch.where(e > 0, torch.inf, -torch.inf).to(s.dtype)
-    s = torch.where((e != 0) & even, torch.nextafter(s, away), s)
-    return th + s
+#: The order in which XLA's CPU backend sums each contraction of the JAX
+#: package's assembly (``jnp.einsum`` lowers each to a dot whose loop
+#: order and vectorization depend on its shape), by element type: (tree,
+#: fused) per stage, in the :func:`_tree_sum` notation.  Leaves: ``J``
+#: node i; ``grads`` and ``gg`` axis d; ``Ke`` (axis g, point q) as
+#: g * n_q + q; ``c``, ``fe``, ``b_q``, ``Kel``, ``fel`` point q; ``b_d``
+#: axis d.  A third member maps the output rows or columns that XLA takes
+#: as a remainder of its tiling to their own tree.  Read from XLA's
+#: results by ``tests/xla_sum_trees.py`` (all terms 1 but a +M, -M pair,
+#: whose sum counts the terms outside their lowest common subtree).
+_SUM_TREES = {
+    "quad": dict(J=(_strided(4), False), grads=(_strided(2), True),
+                 Ke=(_strided(8, 2, 8), False), c=(_strided(4), False),
+                 fe=(_strided(4), False), b_d=(_strided(2), True),
+                 b_q=(_strided(4), False), gg=(_strided(2), True),
+                 Kel=(_strided(4), True), fel=(_strided(4), False)),
+    "tri": dict(J=(_strided(3), True), grads=(_strided(2), True),
+                Ke=(_strided(6), True), c=(_strided(3), True),
+                fe=(_strided(3), False, {2: (_strided(3), True)}),
+                b_d=(_strided(2), True),
+                b_q=(_strided(3), False, {2: (_strided(3), True)}),
+                gg=(_strided(2), True), Kel=(_strided(3), True),
+                fel=(_strided(3), False, {2: (_strided(3), True)})),
+    "hex": dict(J=(_strided(8), False), grads=(_strided(3), True),
+                Ke=(_strided(24), False), c=(_strided(8), False),
+                fe=(_strided(8), False), b_d=(_strided(3), True),
+                b_q=(_strided(8), False), gg=(_strided(3), True),
+                Kel=(_strided(8), True), fel=(_strided(8), False)),
+    "tet": dict(J=(_strided(4), False), grads=(_strided(3), True),
+                Ke=(_strided(12, 2, 8), False), c=(_strided(4), False),
+                fe=(_strided(4), False), b_d=(_strided(3), True),
+                b_q=(_strided(4), False), gg=(_strided(3), True),
+                Kel=(_strided(4), True), fel=(_strided(4), False)),
+    "tri2": dict(J=(_strided(6), False), grads=(_strided(2), True),
+                 Ke=(_strided(12, 2, 8), False,
+                     {slice(4, 6): (_strided(12), False)}),
+                 c=(_strided(6), False), fe=(_strided(6), False),
+                 b_d=(_strided(2), True),
+                 b_q=(_strided(6), False)),
+    "quad2": dict(J=(_strided(9), False, {8: (_strided(9, 2, 8), False)}),
+                  grads=(_strided(2), True),
+                  Ke=(_strided(18), False,
+                      {(slice(0, 8), 8): (_strided(18, 4, 16), False)}),
+                  c=(_strided(9), False),
+                  fe=(_strided(9), False, {8: (_strided(9, 4, 8), False)}),
+                  b_d=(_strided(2), True),
+                  b_q=(_strided(9), False, {8: (_strided(9, 4, 8), False)})),
+}
+
+
+def _contract(quad, stage: str, factors, axis: int = 1):
+    """The contraction ``stage`` of ``quad``'s assembly, summed in XLA's
+    order (:data:`_SUM_TREES`).  A remainder entry keyed by an index or
+    slice of output ``axis``, or by a (rows, columns) pair of the two
+    output axes from ``axis`` on, is summed in its own order there."""
+    tree, fused, *rest = _SUM_TREES[quad.elem_type][stage]
+    out = _tree_sum(tree, factors, fused)
+    for where, (t, f) in (rest[0].items() if rest else ()):
+        idx = (slice(None),) * axis + (where if isinstance(where, tuple)
+                                       else (where,))
+        out[idx] = _tree_sum(
+            t, lambda j: [torch.broadcast_to(x, out.shape)[idx]
+                          for x in factors(j)], f)
+    return out
+
+
+def _det_inv_small(J: torch.Tensor):
+    """Closed-form determinant and inverse of batched 2x2 / 3x3 Jacobians,
+    operation for operation as the JAX package forms them (adjugate over
+    determinant), so both give the same bits."""
+    d = J.shape[-1]
+    if d == 2:
+        a, b = J[..., 0, 0], J[..., 0, 1]
+        c, e = J[..., 1, 0], J[..., 1, 1]
+        det = a * e - b * c
+        inv = torch.stack([torch.stack([e, -b], -1),
+                           torch.stack([-c, a], -1)], -2) / det[..., None, None]
+        return det, inv
+    m = J
+    c00 = m[..., 1, 1] * m[..., 2, 2] - m[..., 1, 2] * m[..., 2, 1]
+    c01 = m[..., 1, 2] * m[..., 2, 0] - m[..., 1, 0] * m[..., 2, 2]
+    c02 = m[..., 1, 0] * m[..., 2, 1] - m[..., 1, 1] * m[..., 2, 0]
+    det = m[..., 0, 0] * c00 + m[..., 0, 1] * c01 + m[..., 0, 2] * c02
+    c10 = m[..., 0, 2] * m[..., 2, 1] - m[..., 0, 1] * m[..., 2, 2]
+    c11 = m[..., 0, 0] * m[..., 2, 2] - m[..., 0, 2] * m[..., 2, 0]
+    c12 = m[..., 0, 1] * m[..., 2, 0] - m[..., 0, 0] * m[..., 2, 1]
+    c20 = m[..., 0, 1] * m[..., 1, 2] - m[..., 0, 2] * m[..., 1, 1]
+    c21 = m[..., 0, 2] * m[..., 1, 0] - m[..., 0, 0] * m[..., 1, 2]
+    c22 = m[..., 0, 0] * m[..., 1, 1] - m[..., 0, 1] * m[..., 1, 0]
+    inv = torch.stack([torch.stack([c00, c10, c20], -1),
+                       torch.stack([c01, c11, c21], -1),
+                       torch.stack([c02, c12, c22], -1)], -2)
+    return det, inv / det[..., None, None]
 
 
 def element_geometry(quad: ElementQuadrature, xe: torch.Tensor):
@@ -193,7 +295,7 @@ def element_geometry(quad: ElementQuadrature, xe: torch.Tensor):
 
     xe: (n_e, nd, d) vertex coordinates.  Returns (xq (n_e, q, d) physical
     points, grads (n_e, q, nd, d) physical shape gradients, jxw (n_e, q)
-    |det J| * weight)."""
+    |det J| * weight), bit for bit as the JAX package on the CPU."""
     # x(q) = sum_i phi_i(q) x_i, summed in separate ops: the islands
     # coefficient jumps exactly on some quadrature points, so the last bit
     # decides which side they land on.  These orders reproduce the JAX
@@ -211,7 +313,7 @@ def element_geometry(quad: ElementQuadrature, xe: torch.Tensor):
     for i in range(1, nd):
         phi_i, x_i = quad.phi[None, :, i, None], xe[:, None, i, :]
         if nd == 3:
-            xq = _fma(phi_i.expand_as(xq), x_i.expand_as(xq), xq)
+            xq = torch.addcmul(xq, phi_i, x_i)
         else:
             xq = xq + phi_i * x_i
     if nd == 9:
@@ -222,9 +324,13 @@ def element_geometry(quad: ElementQuadrature, xe: torch.Tensor):
         row = xq[:, 8].reshape(-1).clone()
         row[:full] = blocked[:full]
         xq[:, 8] = row.reshape(xq[:, 8].shape)
-    J = torch.einsum("qid,eig->eqgd", quad.dphi, xe)  # dx/dxi
-    grads = torch.einsum("qid,eqdg->eqig", quad.dphi, torch.linalg.inv(J))
-    jxw = torch.abs(torch.linalg.det(J)) * quad.weights[None, :]
+    dphi = quad.dphi
+    J = _contract(quad, "J", lambda i: (dphi[None, :, i, None, :],
+                                        xe[:, None, i, :, None]))
+    det, inv = _det_inv_small(J)  # J[e, q] = dx/dxi
+    grads = _contract(quad, "grads", lambda k: (dphi[None, :, :, k, None],
+                                                inv[:, :, None, k, :]))
+    jxw = torch.abs(det) * quad.weights[None, :]
     return xq, grads, jxw
 
 
@@ -246,22 +352,36 @@ def assemble_convection_diffusion(quad: ElementQuadrature, xe: torch.Tensor,
 
 
 def _cd_terms(quad, grads, jxw, alpha, b, c, f, convection_divergence_form):
-    """Einsum stages of the convection-diffusion assembly on
-    per-quadrature-point coefficient values (None = term absent)."""
-    Ke = torch.einsum("eq,eqig,eqjg->eij", jxw * alpha, grads, grads)
+    """The convection-diffusion element terms on per-quadrature-point
+    coefficient values (None = term absent), each contraction formed and
+    summed as the JAX package's ``jnp.einsum`` is on XLA's CPU."""
+    nq = grads.shape[1]
+    phi = quad.phi
+    # sum_{g, q} (jxw alpha)_q grad_i,g grad_j,g
+    w = (jxw * alpha)[:, :, None, None] * grads
+    Ke = _contract(quad, "Ke", lambda m: (
+        w[:, m % nq, :, m // nq, None], grads[:, m % nq, None, :, m // nq]))
     if b is not None:
+        jb = jxw[:, :, None] * b
+        # (b . grad phi_j) at each point, then sum_q against phi_i
+        bg = _contract(quad, "b_d", lambda k: (grads[..., k],
+                                               jb[:, :, None, k]))
         if convection_divergence_form:  # - u_j (b . grad v_i)
-            Ke = Ke - torch.einsum("eq,eqd,eqid,qj->eij", jxw, b, grads,
-                                   quad.phi)
+            Ke = Ke - _contract(quad, "b_q", lambda q: (
+                bg[:, q, :, None], phi[None, q, None, :]), axis=2)
         else:  # + (b . grad u_j) v_i
-            Ke = Ke + torch.einsum("eq,qi,eqd,eqjd->eij", jxw, quad.phi, b,
-                                   grads)
+            Ke = Ke + _contract(quad, "b_q", lambda q: (
+                bg[:, q, None, :], phi[None, q, :, None]))
     if c is not None:
-        Ke = Ke + torch.einsum("eq,qi,qj->eij", jxw * c, quad.phi, quad.phi)
+        cw = jxw * c
+        Ke = Ke + _contract(quad, "c", lambda q: (
+            phi[q, None, :] * phi[q, :, None], cw[:, q, None, None]))
     if f is None:
         fe = Ke.new_zeros(Ke.shape[:2])
     else:
-        fe = torch.einsum("eq,qi->ei", jxw * f, quad.phi)
+        fw = jxw * f
+        fe = _contract(quad, "fe", lambda q: (fw[:, q, None],
+                                              phi[None, q, :]))
     return Ke, fe
 
 
@@ -279,29 +399,36 @@ def assemble_linear_elasticity(quad: ElementQuadrature, xe: torch.Tensor,
 
 
 def _elasticity_terms(quad, grads, jxw, lam, mu, f):
-    """Einsum stages of the elasticity assembly on per-quadrature-point
-    coefficient values lam, mu (n_e, q) and f (n_e, q, d) or None."""
-    n_e, _, nd, d = grads.shape
+    """The elasticity element terms on per-quadrature-point coefficient
+    values lam, mu (n_e, q) and f (n_e, q, d) or None, formed and summed as
+    the JAX package's ``jnp.einsum`` stages are on XLA's CPU."""
+    n_e, nq, nd, d = grads.shape
     # for u = phi_j e_c, v = phi_i e_k:
     #   eps(u):eps(v) = 0.5 (delta_ck grad phi_i . grad phi_j
     #                        + d_k phi_j d_c phi_i)
     #   div u div v   = d_c phi_j d_k phi_i
-    gg = torch.einsum("eqig,eqjg->eqij", grads, grads)
+    # axes of the (e, q, i, j, c, k) terms
+    gg = _contract(quad, "gg", lambda g: (grads[:, :, :, None, g],
+                                          grads[:, :, None, :, g]))
     eye = torch.eye(d, dtype=grads.dtype, device=grads.device)
-    eps_term = 0.5 * (
-        torch.einsum("ck,eqij->eqijck", eye, gg)
-        + torch.einsum("eqjk,eqic->eqijck", grads, grads)
-    )
-    div_term = torch.einsum("eqjc,eqik->eqijck", grads, grads)
-    Kfull = (torch.einsum("eq,eqijck->eijck", jxw * 2 * mu, eps_term)
-             + torch.einsum("eq,eqijck->eijck", jxw * lam, div_term))
+    gi = grads[:, :, :, None, :, None]  # d_c phi_i
+    gj = grads[:, :, None, :, None, :]  # d_k phi_j
+    eps_term = 0.5 * (gg[..., None, None] * eye + gi * gj)
+    div_term = grads[:, :, None, :, :, None] * grads[:, :, :, None, None, :]
+    mu2, lamw = jxw * 2 * mu, jxw * lam
+    Kfull = (_contract(quad, "Kel", lambda q: (
+                 mu2[:, q, None, None, None, None], eps_term[:, q]))
+             + _contract(quad, "Kel", lambda q: (
+                 lamw[:, q, None, None, None, None], div_term[:, q])))
     # (i, j, c, k) -> rows (i*d + k), cols (j*d + c)
     Ke = Kfull.permute(0, 1, 4, 2, 3).reshape(n_e, nd * d, nd * d)
     if f is None:
         fe = Ke.new_zeros((n_e, nd * d))
     else:
-        fe = torch.einsum("eq,qi,eqc->eic", jxw, quad.phi, f).reshape(
-            n_e, nd * d)
+        jf = jxw[:, :, None] * f
+        fe = _contract(quad, "fel", lambda q: (
+            jf[:, q, None, :], quad.phi[None, q, :, None])).reshape(
+                n_e, nd * d)
     return Ke, fe
 
 

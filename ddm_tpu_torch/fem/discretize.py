@@ -138,7 +138,8 @@ class Discretization:
         are the discretization's own problem's."""
         A, b = self.assemble(problem)
         g = self.dirichlet_values
-        rhs = torch.where(self.dirichlet_mask, 0.0, b - A.mv(g))
+        # unfused, as the JAX package's eager call rounds it
+        rhs = torch.where(self.dirichlet_mask, 0.0, b - A.mv(g, fused=False))
         return eliminate_dirichlet(A, self.dirichlet_mask), rhs, g
 
     # -- DDM inputs --------------------------------------------------------

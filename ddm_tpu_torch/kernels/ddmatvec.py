@@ -11,7 +11,9 @@ at (1, n_c, n_c).
 * :func:`dd_matvec_reference` — the plain version, the TPU package's formula:
   three f32 products combined in f64 (TF32 off).
 * :func:`dd_matvec_cuda` — the hand-written kernel ``csrc/dd_matvec.cu``:
-  one read of hi and lo, f64 accumulation.  It is bound by the 8 bytes read
+  one read of hi and lo, f64 accumulation; :func:`dd_matmat_cuda`, its
+  k-column form (d of shape (n_sub, q, k), which the TPU package computes
+  in XLA), k dot products per read of a row.  It is bound by the 8 bytes read
   per matrix entry (1.47 GB per call at the main path's (256, 848, 848));
   see the source for the design.
 * :func:`plan` — the kernel's launch tiling, from the shape and the card's
@@ -33,6 +35,8 @@ from typing import NamedTuple
 import torch
 
 MAX_CLUSTER = 8  # portable thread-block cluster size (csrc: kMaxCluster)
+MAX_RHS = 8  # right-hand sides per multi-RHS launch (csrc: kMaxRhs)
+SMEM_BYTES = 232448  # shared memory a block may take on sm_90 (227 KB)
 BLOCKS_PER_SM = 2  # a small batch is split up to this many blocks per SM
 # (rows, chunks) from coarse to fine tiles: alternately double the column
 # chunks and halve the rows per block, down to one row per warp (the
@@ -103,29 +107,23 @@ def tf32_off():
 def dd_matvec_reference(hi: torch.Tensor, lo: torch.Tensor,
                         d: torch.Tensor) -> torch.Tensor:
     """y = (hi+lo) @ d as three f32 matvecs combined in f64 — the formula
-    of ``ddm_tpu/solvers/direct.py:dd_matvec``.  d: (n_sub, q) f64 with
-    q <= P; reads the leading q x q block."""
+    of ``ddm_tpu/solvers/direct.py:dd_matvec``.  d: (n_sub, q) or (n_sub,
+    q, k) f64 with q <= P; reads the leading q x q block."""
     q = d.shape[1]
     if q != hi.shape[-1]:
         hi, lo = hi[:, :q, :q], lo[:, :q, :q]
     dh = d.to(torch.float32)
     dl = (d - dh.to(torch.float64)).to(torch.float32)
-    eq = "spq,sq->sp"
+    eq = "spq,sq->sp" if d.ndim == 2 else "spq,sqk->spk"
     with tf32_off():
         y0 = torch.einsum(eq, hi, dh)
         y1 = torch.einsum(eq, lo, dh) + torch.einsum(eq, hi, dl)
     return y0.to(torch.float64) + y1.to(torch.float64)
 
 
-def dd_matvec_cuda(hi: torch.Tensor, lo: torch.Tensor,
-                   d: torch.Tensor) -> torch.Tensor:
-    """Launch ``csrc/dd_matvec.cu`` on PyTorch's current stream, tiled by
-    :func:`plan` for the card.
-
-    hi, lo: (n_sub, P, P) float32 contiguous CUDA; d: (n_sub, q) float64
-    contiguous CUDA with q <= P.  Returns y (n_sub, q) float64.  Adds one to
-    ``dd_matvec_cuda.shapes[(n_sub, P, q)]`` per launch; the total is the
-    sum of its values."""
+def _check(hi: torch.Tensor, lo: torch.Tensor, d: torch.Tensor, ndim: int):
+    """Raise unless hi, lo (n_sub, P, P) f32 and d (n_sub, q <= P[, k]) f64
+    are contiguous on one CUDA device and d has ``ndim`` axes."""
     if not (hi.is_cuda and lo.is_cuda and d.is_cuda):
         raise ValueError("dd_matvec_cuda needs CUDA tensors")
     if not (hi.device == lo.device == d.device):
@@ -137,12 +135,26 @@ def dd_matvec_cuda(hi: torch.Tensor, lo: torch.Tensor,
     if hi.ndim != 3 or hi.shape[1] != hi.shape[2] or lo.shape != hi.shape:
         raise ValueError(f"hi, lo must be (n_sub, P, P), got {hi.shape}, {lo.shape}")
     n_sub, P, _ = hi.shape
-    if d.ndim != 2 or d.shape[0] != n_sub or d.shape[1] > P:
-        raise ValueError(f"d must be (n_sub, q <= {P}), got {tuple(d.shape)}")
+    if d.ndim != ndim or d.shape[0] != n_sub or d.shape[1] > P:
+        raise ValueError(f"d must be (n_sub, q <= {P}){'' if ndim == 2 else ', k'}"
+                         f", got {tuple(d.shape)}")
     if not (hi.is_contiguous() and lo.is_contiguous() and d.is_contiguous()):
         raise ValueError("hi, lo and d must be contiguous")
     if n_sub > 65535:
         raise ValueError("at most 65535 subdomains per launch")
+
+
+def dd_matvec_cuda(hi: torch.Tensor, lo: torch.Tensor,
+                   d: torch.Tensor) -> torch.Tensor:
+    """Launch ``csrc/dd_matvec.cu`` on PyTorch's current stream, tiled by
+    :func:`plan` for the card.
+
+    hi, lo: (n_sub, P, P) float32 contiguous CUDA; d: (n_sub, q) float64
+    contiguous CUDA with q <= P.  Returns y (n_sub, q) float64.  Adds one to
+    ``dd_matvec_cuda.shapes[(n_sub, P, q)]`` per launch; the total is the
+    sum of its values."""
+    _check(hi, lo, d, 2)
+    n_sub, P, _ = hi.shape
     q = d.shape[1]
     y = torch.empty((n_sub, q), dtype=torch.float64, device=d.device)
     pl = plan(n_sub, q, sm_count(d.device))
@@ -161,24 +173,61 @@ dd_matvec_cuda.shapes = collections.Counter()
 
 
 @functools.cache
-def _launcher():
-    """The C entry point ``ddm_dd_matvec`` (hi, lo, d, y, n_sub, P, q,
-    rows, chunks, cols, stream) -> cudaError_t, built at first call."""
+def _launcher(name: str = "ddm_dd_matvec"):
+    """A C entry point of ``csrc/dd_matvec.cu``, built at first call:
+    ``ddm_dd_matvec`` (hi, lo, d, y, n_sub, P, q, rows, chunks, cols,
+    stream) or ``ddm_dd_matmat`` (hi, lo, d, y, n_sub, P, q, k, j0, n_rhs,
+    rows, chunks, cols, stream), each -> cudaError_t."""
     from .build import load
 
-    fn = load("dd_matvec").ddm_dd_matvec
+    fn = getattr(load("dd_matvec"), name)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    n_int = 9 if name == "ddm_dd_matmat" else 6
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * n_int
+                   + [ctypes.c_void_p])
     return fn
 
 
+def dd_matmat_cuda(hi: torch.Tensor, lo: torch.Tensor,
+                   d: torch.Tensor) -> torch.Tensor:
+    """Launch the multi-RHS entry ``ddm_dd_matmat`` of ``csrc/dd_matvec.cu``
+    on PyTorch's current stream, on :func:`plan`'s tiling, once per group
+    of up to ``MAX_RHS`` columns (fewer where a block's shared memory would
+    not hold the group's chunk of d).
+
+    hi, lo: (n_sub, P, P) float32 contiguous CUDA; d: (n_sub, q, k) float64
+    contiguous CUDA with q <= P.  Returns y (n_sub, q, k) float64.  Adds
+    one to ``dd_matmat_cuda.shapes[(n_sub, P, q, k)]`` per launch."""
+    _check(hi, lo, d, 3)
+    n_sub, P, _ = hi.shape
+    q, k = d.shape[1], d.shape[2]
+    y = torch.empty((n_sub, q, k), dtype=torch.float64, device=d.device)
+    pl = plan(n_sub, q, sm_count(d.device))
+    group = min(MAX_RHS, SMEM_BYTES // (8 * (pl.cols + 1 + pl.rows)))
+    fn = _launcher("ddm_dd_matmat")
+    with torch.cuda.device(d.device):
+        stream = torch.cuda.current_stream(d.device).cuda_stream
+        for j0 in range(0, k, group):
+            n_rhs = min(group, k - j0)
+            err = fn(hi.data_ptr(), lo.data_ptr(), d.data_ptr(), y.data_ptr(),
+                     n_sub, P, q, k, j0, n_rhs, pl.rows, pl.chunks, pl.cols,
+                     stream)
+            if err != 0:
+                raise RuntimeError(f"dd_matmat launch failed: CUDA error {err}")
+            dd_matmat_cuda.shapes[(n_sub, P, q, k)] += 1
+    return y
+
+
+dd_matmat_cuda.shapes = collections.Counter()
+
+
 def dd_matvec(hi: torch.Tensor, lo: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
-    """y = (hi + lo) @ d for one right-hand side per subdomain, d (n_sub, q).
-    CPU tensors: :func:`dd_matvec_reference`; CUDA tensors:
-    :func:`dd_matvec_cuda`."""
-    if d.ndim != 2:
-        raise NotImplementedError("multi-RHS dd_matvec is not ported")
+    """y = (hi + lo) @ d per subdomain, d (n_sub, q) or, for k right-hand
+    sides, (n_sub, q, k).  CPU tensors: :func:`dd_matvec_reference`; CUDA
+    tensors: :func:`dd_matvec_cuda` or :func:`dd_matmat_cuda`."""
     if d.is_cuda:
+        if d.ndim == 3:
+            return dd_matmat_cuda(hi, lo, d)
         return dd_matvec_cuda(hi, lo, d)
     if d.device.type == "cpu" and hi.device.type == "cpu":
         return dd_matvec_reference(hi, lo, d)

@@ -95,7 +95,8 @@ class BatchedInverseDD:
 
     with A_sub x computed exactly from the subdomain's sparse rows
     (reference analogue: the blockwise iterative refinement of
-    dune/ddm/eigensolvers/umfpack.hh:42-129)."""
+    dune/ddm/eigensolvers/umfpack.hh:42-129).  ``solve`` takes b of shape
+    (n_sub, p) or, refining k columns at once, (n_sub, p, k)."""
 
     inv_hi: torch.Tensor  # (n_sub, p, p) float32
     inv_lo: torch.Tensor  # (n_sub, p, p) float32
@@ -144,7 +145,11 @@ class SparseRefinedInverse:
 def sparse_amul(sub_vals: torch.Tensor, sub_cols: torch.Tensor,
                 x: torch.Tensor) -> torch.Tensor:
     """Exact f64 A_sub @ x from the subdomains' sparse rows (vals and
-    local cols (n_sub, p, m), dummy column p); x: (n_sub, p)."""
+    local cols (n_sub, p, m), dummy column p); x: (n_sub, p) or, for k
+    right-hand sides, (n_sub, p, k)."""
+    if x.ndim == 3:
+        return torch.stack([sparse_amul(sub_vals, sub_cols, x[..., j])
+                            for j in range(x.shape[2])], dim=-1)
     n_sub, p = x.shape
     pad = torch.cat([x, x.new_zeros((n_sub, 1))], dim=1)
     xs = torch.gather(pad, 1, sub_cols.reshape(n_sub, -1))

@@ -15,7 +15,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from ddm_tpu_torch import bench as tbench  # noqa: E402
 
+from blas_threads import one_blas_thread  # noqa: E402,F401
+
 torch.set_num_threads(2)
+
 
 PARTS, OVERLAP, NEV = 2, 2, 2
 TRUE_RES_MAX = 1e-7  # bench.py's baselines, tests/test_bench_baselines.py

@@ -26,6 +26,8 @@ from ddm_tpu_torch.fem import dg as tdg
 from ddm_tpu_torch.fem import problems as tproblems
 from ddm_tpu_torch.fem.grids import structured_grid
 
+from blas_threads import one_blas_thread  # noqa: E402,F401
+
 torch.set_num_threads(2)
 
 # kind -> (JAX class, port class, cells, simplex)

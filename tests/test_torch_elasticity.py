@@ -47,6 +47,8 @@ from ddm_tpu_torch.precond.two_level import build_coarse_space
 from ddm_tpu_torch.solvers import krylov as tkrylov
 from ddm_tpu_torch.solvers.direct import BatchedCholesky, BatchedLU, factor_batched
 
+from blas_threads import one_blas_thread  # noqa: E402,F401
+
 torch.set_num_threads(2)
 
 # (cells, extent, problem name): a 2-D strip and a 3-D bar

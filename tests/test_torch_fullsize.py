@@ -311,18 +311,92 @@ def run_port(path, inverse=False):
     return dict(out, secs=r["secs"], peak_gib=_peak_gib())
 
 
+# -- the swap: each package's system and preconditioner on both iterates --
+
+# the smallest size at which the two packages' verified defects at the
+# Givens hit part (ROADMAP.md, queue 3): msgfem_ring_f64 at islands 192^2
+SWAP_PATH, SWAP_SIZE = "msgfem_ring_f64", (192, (12, 12))
+
+
+def run_swap(side, path, out_dir):
+    """One package's side of the swap at ``SWAP_SIZE``: the first call
+    solves unverified to the Givens estimate's first hit and writes its
+    equilibrated system (each row's entries sorted by column), its iterate
+    and its residual b - A x there (as its solves compute it) to
+    ``out_dir/<side>.npz``; every call measures the residual that the other
+    side wrote, when there is one, with its own preconditioner.  Ratios
+    are ||M (b - A x)|| / (reduction ||M b||), the verified defect over
+    the target."""
+    import numpy as np
+
+    chip_smoke.FULL["islands"] = SWAP_SIZE
+    size, parts = SWAP_SIZE
+    if side == "jax":
+        _jax()
+        import jax
+        import jax.numpy as jnp
+
+        import ddm_tpu.api as api
+        p = _jax_problem(path)
+        M = api.build_preconditioner(p)
+        mv = jax.jit(lambda A, x: A.mv(x))
+
+        def to_np(a):
+            return np.asarray(a)
+
+        def norm_m(r):
+            return float(jnp.linalg.norm(M.apply(jnp.asarray(r))))
+    else:
+        import torch
+
+        from ddm_tpu_torch import api
+        p = chip_smoke.path_problem(api, path, size, parts,
+                                    torch.device("cpu"))
+        M = api.build_preconditioner(p)
+
+        def mv(A, x):
+            return A.mv(x)
+
+        def to_np(a):
+            return a.numpy()
+
+        def norm_m(r):
+            return float(torch.linalg.norm(M.apply(torch.as_tensor(r))))
+    tol = p.ptree.get("solver.reduction", 1e-8)
+    mine = os.path.join(out_dir, f"{side}.npz")
+    out = {}
+    if not os.path.exists(mine):
+        p.ptree["solver.verify"] = False
+        res = api.solve(p, M)
+        hit = int(res.iterations)
+        r = p.rhs - mv(p.A, res.x)
+        np.savez(mine, A=p.disc.pattern.to_scipy(p.A).sorted_indices().data,
+                 b=to_np(p.rhs), x=to_np(res.x), r=to_np(r))
+        out.update(hit=hit, verified_at_hit=chip_smoke.verified_at(
+            api, p, M, hit), own=norm_m(to_np(r)) / (tol * norm_m(
+                to_np(p.rhs))))
+    other = os.path.join(out_dir, ("port" if side == "jax" else "jax")
+                         + ".npz")
+    if os.path.exists(other):
+        r_other = np.load(other)["r"]
+        out["other_residual"] = norm_m(r_other) / (tol * norm_m(
+            to_np(p.rhs)))
+    return out
+
+
 # side -> runner; the "-inverse" sides build explicit f64 inverses
 RUNNERS = {"jax": run_jax, "port": run_port,
            "jax-inverse": lambda path: run_jax(path, inverse=True),
            "port-inverse": lambda path: run_port(path, inverse=True)}
 
 
-def run_side(side, path):
+def run_side(side, path, *args):
     """One side of one case in its own process; its JSON result."""
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     cpus = sorted(os.sched_getaffinity(0))[:JAX_CPUS]
     proc = subprocess.run([sys.executable, os.path.abspath(__file__), side,
-                           path], capture_output=True, text=True, env=env,
+                           path, *args], capture_output=True, text=True,
+                          env=env,
                           timeout=SIDE_TIMEOUT_S, cwd=ROOT,
                           preexec_fn=lambda: os.sched_setaffinity(0, cpus))
     assert proc.returncode == 0, proc.stderr[-4000:]
@@ -359,6 +433,30 @@ def test_fullsize_port_matches_jax(path):
             assert chip_smoke.MAX_ITERS[limit] == recorded + margin
 
 
+@pytest.mark.slow
+def test_fullsize_system_is_bit_equal_and_residuals_swap(tmp_path):
+    """At msgfem_ring_f64, islands 192^2 / 144: the equilibrated A and b of
+    the two packages bit-equal; each side's verified defect at its Givens
+    hit, and each side's residual there measured by the other package's
+    preconditioner, printed (ROADMAP.md, queue 3; PERF.md section 2)."""
+    import numpy as np
+
+    port = run_side("port-swap", SWAP_PATH, str(tmp_path))
+    ref = run_side("jax-swap", SWAP_PATH, str(tmp_path))
+    port.update(run_side("port-swap", SWAP_PATH, str(tmp_path)))
+    print(f"{SWAP_PATH} {SWAP_SIZE}: jax {ref}\n{SWAP_PATH} {SWAP_SIZE}: "
+          f"port {port}")
+    a, b = np.load(tmp_path / "jax.npz"), np.load(tmp_path / "port.npz")
+    assert np.array_equal(a["A"], b["A"]) and np.array_equal(a["b"], b["b"])
+    for side in (ref, port):
+        assert all(np.isfinite(side[k]) for k in
+                   ("verified_at_hit", "own", "other_residual"))
+
+
 if __name__ == "__main__":
     side, name = sys.argv[1:3]
-    print(json.dumps(RUNNERS[side](name)), flush=True)
+    if side.endswith("-swap"):
+        out = run_swap(side[:-len("-swap")], name, sys.argv[3])
+    else:
+        out = RUNNERS[side](name)
+    print(json.dumps(out), flush=True)

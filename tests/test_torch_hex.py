@@ -30,6 +30,8 @@ from ddm_tpu_torch.fem.grids import structured_grid
 from ddm_tpu_torch.kernels import ddmatvec
 from ddm_tpu_torch.precond.galerkin import _pairs_maps
 
+from blas_threads import one_blas_thread  # noqa: E402,F401
+
 torch.set_num_threads(2)
 
 GRID, PARTS = 8, (2, 2, 2)

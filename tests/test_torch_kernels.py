@@ -1,5 +1,9 @@
 """dd_matvec in the PyTorch port: the plain version against the JAX package,
-the CUDA kernel against the plain version on a card.
+the CUDA kernel against the plain version on a card, one right-hand side
+per subdomain and k of them (the multi-RHS ``dd_matmat`` entry, and the
+double-single solve over k columns); and torch's ``addcmul`` as the fused
+multiply-add that the staged assembly and the SpMV rely on, with the
+card's assembled system against the CPU's.
 
 The plain version (the one CPU tensors take) is held against the JAX
 package's XLA formula ``ddm_tpu.solvers.direct.dd_matvec`` and its Pallas
@@ -19,6 +23,8 @@ import torch
 
 from ddm_tpu_torch.kernels import ddmatvec
 from ddm_tpu_torch.solvers.direct import dd_split
+
+from blas_threads import one_blas_thread  # noqa: E402,F401
 
 torch.set_num_threads(2)
 
@@ -75,6 +81,60 @@ def test_reference_matches_jax(n_sub, P, q):
     # the split itself is the JAX package's, bit for bit
     np.testing.assert_array_equal(hi.numpy(), np.asarray(hj))
     np.testing.assert_array_equal(lo.numpy(), np.asarray(lj))
+
+
+@pytest.mark.parametrize("n_sub,P,k", [(3, 64, 3), (2, 37, 9)])
+def test_multi_rhs_matches_jax(n_sub, P, k):
+    """k right-hand sides at once (the JAX package's ``spq,sqk->spk``
+    formula): the plain version against the JAX package's ``dd_matvec`` to
+    1e-6 relative (both sum f32 products, in different orders) and column
+    by column against the one-column version to 1e-6; the dd solve with two
+    exact sparse refinement steps against ``BatchedInverseDD.solve`` of the
+    JAX package to 1e-10 relative (the refinement leaves the f32 rounding
+    of the last correction only)."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from ddm_tpu.solvers.direct import BatchedInverseDD as JaxInverseDD
+    from ddm_tpu.solvers.direct import dd_matvec as jax_dd_matvec
+    from ddm_tpu.solvers.direct import dd_split as jax_dd_split
+    from ddm_tpu_torch.solvers.direct import BatchedInverseDD
+
+    rng = np.random.default_rng(P + k)
+    # SPD tridiagonal subdomain matrices (m = 3 sparse slots per row,
+    # dummy column P) and their exact inverses
+    main = 2.5 + rng.uniform(0, 1, (n_sub, P))
+    off = -rng.uniform(0.5, 1, (n_sub, P - 1))
+    A = np.zeros((n_sub, P, P))
+    idx = np.arange(P)
+    A[:, idx, idx] = main
+    A[:, idx[1:], idx[:-1]] = off
+    A[:, idx[:-1], idx[1:]] = off
+    cols = np.stack([idx - 1, idx, idx + 1], -1)
+    vals = np.take_along_axis(A, np.clip(cols, 0, P - 1)[None], axis=2)
+    outside = (cols < 0) | (cols >= P)
+    cols = np.where(outside, P, cols)
+    vals = np.where(outside[None], 0.0, vals)
+    cols = np.broadcast_to(cols, (n_sub, P, 3)).copy()
+    inv = np.linalg.inv(A)
+    b = rng.standard_normal((n_sub, P, k)) * 10.0 ** rng.uniform(-3, 3, (n_sub, 1, k))
+
+    hi, lo = dd_split(torch.as_tensor(inv))
+    y = ddmatvec.dd_matvec(hi, lo, torch.as_tensor(b)).numpy()
+    hj, lj = jax_dd_split(jnp.asarray(inv))
+    assert _relerr(y, jax_dd_matvec(hj, lj, jnp.asarray(b))) < 1e-6
+    for j in range(k):
+        y1 = ddmatvec.dd_matvec(hi, lo, torch.as_tensor(b[..., j])).numpy()
+        assert _relerr(y[..., j], y1) < 1e-6
+
+    x = BatchedInverseDD(hi, lo, torch.as_tensor(vals), torch.as_tensor(cols),
+                         steps=2).solve(torch.as_tensor(b)).numpy()
+    xj = JaxInverseDD(hj, lj, jnp.asarray(vals), jnp.asarray(cols, np.int32),
+                      steps=2).solve(jnp.asarray(b))
+    assert x.shape == (n_sub, P, k)
+    for j in range(k):  # each column to its own scale
+        assert _relerr(x[..., j], np.asarray(xj)[..., j]) < 1e-10
+        assert _relerr(x[..., j], np.linalg.solve(A, b[..., j, None])[..., 0]) < 1e-10
 
 
 def _launches():
@@ -188,8 +248,33 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         ddmatvec.dd_matvec_cuda(hi.mT, lo, dt)  # not contiguous
     with pytest.raises(ValueError):
         ddmatvec.dd_matvec_cuda(hi, lo, torch.cat([dt, dt], dim=1))  # q > P
-    with pytest.raises(NotImplementedError):
-        ddmatvec.dd_matvec(hi, lo, dt[..., None])  # multi-RHS
+    with pytest.raises(ValueError):
+        ddmatvec.dd_matvec_cuda(hi, lo, dt[..., None])  # k columns: dd_matmat
+    with pytest.raises(ValueError):
+        ddmatvec.dd_matmat_cuda(hi, lo, dt)  # one column: dd_matvec
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_sub,P,k", [(4, 256, 3), (3, 177, 8), (2, 640, 11),
+                                       (1, 2048, 8), (8, 848, 8)])
+def test_cuda_multi_rhs_kernel_matches_reference(cuda_device, n_sub, P, k):
+    """The k-column kernel against the plain version (f32 partial sums) to
+    1e-6 and against the f64 product to 1e-12, column by column, with one
+    launch per group of up to 8 columns (11 columns: two)."""
+    A, _ = _inputs(n_sub, P, P, seed=P + k)
+    rng = np.random.default_rng(k)
+    d = rng.standard_normal((n_sub, P, k)) * 10.0 ** rng.uniform(-6, 6, (n_sub, P, k))
+    hi, lo = dd_split(torch.as_tensor(A, device=cuda_device))
+    dt = torch.as_tensor(d, device=cuda_device)
+    before = sum(ddmatvec.dd_matmat_cuda.shapes.values())
+    y = ddmatvec.dd_matvec(hi, lo, dt)
+    torch.cuda.synchronize()
+    assert sum(ddmatvec.dd_matmat_cuda.shapes.values()) == before + -(-k // 8)
+    ref = ddmatvec.dd_matvec_reference(hi, lo, dt).cpu()
+    truth = ((hi.double() + lo.double()) @ dt).cpu()
+    for j in range(k):
+        assert _relerr(y[..., j].cpu(), ref[..., j]) < 1e-6
+        assert _relerr(y[..., j].cpu(), truth[..., j]) < 1e-12
 
 
 @pytest.mark.cuda
@@ -277,3 +362,93 @@ def test_cuda_kernel_reads_a_nonsymmetric_inverse_by_rows(cuda_device, n_sub, P)
     wrong = (A32.mT @ dt.cpu()[..., None])[..., 0]
     assert _relerr(y, truth) < 1e-12
     assert _relerr(wrong, truth) > 0.1
+
+
+def _fma_cases(device):
+    """(c, a, b) on ``device`` and the correctly rounded a * b + c, from
+    exact rationals: a flat batch whose first half has c = -fl(a * b), so
+    the product's rounding error is the whole result (a multiply, then an
+    add, gives 0 there), and a broadcast (64, 1) x (1, 64) batch as the
+    staged assembly forms its products."""
+    from fractions import Fraction
+
+    rng = np.random.default_rng(11)
+    n = 4096
+    a = rng.standard_normal(n) * 2.0 ** rng.integers(-30, 30, n)
+    b = rng.standard_normal(n)
+    c = rng.standard_normal(n)
+    c[: n // 2] = -(a[: n // 2] * b[: n // 2])
+    cases = [(c, a, b)]
+    ab, bb = rng.standard_normal((64, 1)), rng.standard_normal((1, 64))
+    cb = -(ab * bb)
+    cb[:, ::2] = rng.standard_normal((64, 32))
+    cases.append((cb, ab, bb))
+    out = []
+    for c, a, b in cases:
+        aa, bb2 = np.broadcast_arrays(a, b)
+        exact = np.array([float(Fraction(x) * Fraction(y) + Fraction(z))
+                          for x, y, z in zip(aa.ravel(), bb2.ravel(),
+                                             np.broadcast_to(c, aa.shape).ravel())])
+        t = [torch.as_tensor(v, device=device) for v in (c, a, b)]
+        out.append((t, exact.reshape(aa.shape)))
+    return out
+
+
+def _addcmul_is_fma(device):
+    for (c, a, b), exact in _fma_cases(device):
+        y = torch.addcmul(c, a, b).cpu().numpy()
+        assert np.array_equal(y, exact), int((y != exact).sum())
+        assert not np.array_equal((a * b + c).cpu().numpy(), exact)
+
+
+def test_addcmul_is_a_fused_multiply_add():
+    """torch's ``addcmul`` on the CPU rounds a * b + c once, as the staged
+    assembly (fem/assemble.py) and the SpMV (core/sparse.py) need to give
+    the JAX package's bits there."""
+    _addcmul_is_fma("cpu")
+
+
+@pytest.mark.cuda
+def test_cuda_addcmul_is_a_fused_multiply_add(cuda_device):
+    """The same on the card: one rounding, the CPU's bits."""
+    _addcmul_is_fma(cuda_device)
+
+
+@pytest.mark.cuda
+def test_cuda_assembly_matches_cpu_bit_for_bit(cuda_device):
+    """The staged element matrices and the assembled, constrained system on
+    the card give the CPU's bits (which are the JAX package's,
+    tests/test_torch_assembly_bitwise.py), islands Q1 32^2; the
+    equilibration's ``rsqrt`` (CUDA's, 1 ulp, against the CPU's correctly
+    rounded 1/sqrt) within 2 ulps; the SpMV of the CPU's equilibrated
+    matrix on the card the CPU's bits, fused and eager."""
+    import dataclasses
+
+    from ddm_tpu_torch.core.sparse import jacobi_equilibrate
+    from ddm_tpu_torch.fem import problems
+    from ddm_tpu_torch.fem.discretize import Discretization
+    from ddm_tpu_torch.fem.grids import structured_grid
+
+    def stages(device):
+        d = Discretization(structured_grid((32, 32)), problems.islands(),
+                           device)
+        Ke, fe = d.element_matrices()
+        A, b = d.assemble()
+        Ac, rhs, _ = d.constrained_system()
+        Ae, _, s = jacobi_equilibrate(Ac, rhs)
+        return {"Ke": Ke, "fe": fe, "A": A.vals, "b": b,
+                "A_constrained": Ac.vals, "rhs": rhs}, s, Ae
+
+    cpu, s_cpu, Ae = stages("cpu")
+    card, s_card, _ = stages(cuda_device)
+    differ = {k: int((cpu[k] != card[k].cpu()).sum()) for k in cpu}
+    assert not any(differ.values()), str(differ)
+    ulps = (s_card.cpu().view(torch.int64) - s_cpu.view(torch.int64)).abs()
+    assert int(ulps.max()) <= 2, (int((ulps > 0).sum()), int(ulps.max()))
+    Ae_card = dataclasses.replace(
+        Ae, cols=Ae.cols.to(cuda_device), vals=Ae.vals.to(cuda_device),
+        fix_rows=None if Ae.fix_rows is None else Ae.fix_rows.to(cuda_device))
+    v = torch.as_tensor(np.random.default_rng(0).standard_normal(Ae.n))
+    for fused in (True, False):
+        y = Ae_card.mv(v.to(cuda_device), fused=fused).cpu()
+        assert torch.equal(y, Ae.mv(v, fused=fused)), fused

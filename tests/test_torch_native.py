@@ -19,6 +19,8 @@ from ddm_tpu_torch.fem.grids import Grid, refine, structured_grid
 
 ROOT = Path(__file__).resolve().parents[1]
 
+from blas_threads import one_blas_thread  # noqa: E402,F401
+
 torch.set_num_threads(2)
 
 

@@ -34,6 +34,8 @@ from ddm_tpu_torch.solvers.krylov import SOLVERS, bicgstab_solve
 from ddm_tpu_torch.solvers.newton import newton_solve
 from ddm_tpu_torch.solvers.nonlinear_driver import TwoLevelNewtonSolver
 
+from blas_threads import one_blas_thread  # noqa: E402,F401
+
 torch.set_num_threads(2)
 
 ETA = 10.0

@@ -20,6 +20,8 @@ import numpy as np
 import pytest
 import torch
 
+from blas_threads import one_blas_thread  # noqa: E402,F401
+
 torch.set_num_threads(2)
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")

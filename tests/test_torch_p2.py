@@ -32,6 +32,8 @@ from ddm_tpu_torch.fem.discretize import Discretization
 from ddm_tpu_torch.fem.grids import structured_grid
 from ddm_tpu_torch.fem.highorder import p2_dofs
 
+from blas_threads import one_blas_thread  # noqa: E402,F401
+
 torch.set_num_threads(2)
 
 SIMPLEX = {"tri": True, "quad": False}

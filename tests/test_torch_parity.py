@@ -114,16 +114,6 @@ PARITY_EXCEPTIONS = {
         "tpu", "evaluates coefficients on the host CPU because the TPU's "
         "emulated f64 flips discontinuities; the port evaluates in IEEE "
         "f64 where the data lives"),
-    "ddm_tpu.coarse.geneo.neumann_matrices(method)": (
-        "tpu", "selects the Neumann subtraction fast path over the TPU "
-        "canvases (no config key); the port always sums the stamps "
-        "(coarse/geneo._stamp_sum), the exact path"),
-    "ddm_tpu.coarse.geneo.region_neumann(method)": (
-        "tpu", "selects the canvas fast path (no config key); the port "
-        "always sums the stamps"),
-    "ddm_tpu.fem.subassembly.crossing_stamp_lists": (
-        "tpu", "stamps of the boundary-crossing elements for the Neumann "
-        "subtraction fast path; the port sums every stamp"),
     "ddm_tpu.fem.subassembly.subdomain_element_lists": (
         "renamed", "the element wrapper of subdomain_stamp_lists; the "
         "port calls that with the discretization's dof tuples",

@@ -39,6 +39,8 @@ from ddm_tpu_torch.precond.extract import extract_subdomain_dense
 from ddm_tpu_torch.precond.galerkin import _mask_inactive, galerkin_coarse_matrix_pairs
 from ddm_tpu_torch.precond.schwarz import build_schwarz
 
+from blas_threads import one_blas_thread  # noqa: E402,F401
+
 torch.set_num_threads(2)
 
 GRID, PARTS, NEV = 32, (4, 4), 8

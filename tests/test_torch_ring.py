@@ -54,6 +54,8 @@ from ddm_tpu_torch.solvers.direct import (
     pack_inverse,
 )
 
+from blas_threads import one_blas_thread  # noqa: E402,F401
+
 torch.set_num_threads(2)
 
 GRID, PARTS, NEV = 32, (4, 4), 8

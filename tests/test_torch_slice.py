@@ -19,6 +19,8 @@ from ddm_tpu.fem import problems as jproblems
 from ddm_tpu_torch import api as tapi
 from ddm_tpu_torch.fem import problems as tproblems
 
+from blas_threads import one_blas_thread  # noqa: E402,F401
+
 torch.set_num_threads(2)
 
 PRECISIONS = ["f64", "dd"]

@@ -30,6 +30,8 @@ from ddm_tpu_torch.fem import problems as tproblems
 from ddm_tpu_torch.fem.grids import structured_grid
 from ddm_tpu_torch.fem.msh import read_msh
 
+from blas_threads import one_blas_thread  # noqa: E402,F401
+
 torch.set_num_threads(2)
 
 _GMSH = {"tri": 2, "quad": 3, "tet": 4, "hex": 5, "line": 1}
