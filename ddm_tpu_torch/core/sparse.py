@@ -81,6 +81,21 @@ class SumPlan:
         return out
 
 
+# XLA's CPU backend sums a reduction over more than _WINDOW terms in
+# windows of _WINDOW (read with tests/xla_sum_trees.py's method)
+_WINDOW = 32
+
+
+def _reduce_windows(m: int) -> list:
+    """The windows in which XLA's CPU backend sums a reduction of ``m`` >
+    32 terms: the terms padded to a multiple of 32, half the padding (the
+    smaller half) in front, each window's terms in order."""
+    total = -(-m // _WINDOW) * _WINDOW
+    lo = (total - m) // 2
+    return [[k for k in range(w - lo, w - lo + _WINDOW) if 0 <= k < m]
+            for w in range(0, total, _WINDOW)]
+
+
 @dataclass
 class SparseELL:
     """Device sparse matrix, padded ELL, row-major.
@@ -115,8 +130,11 @@ class SparseELL:
         (``torch.addcmul``); a stencil row starts with slot 0 fused into the
         product of slot 1, the other rows with the product of slot 0.
         ``fused=False`` (as the JAX package's eager calls) rounds every
-        product, then adds.  No atomics: the order is fixed on every
-        device."""
+        product, then adds.  Rows of more than 32 slots that are not
+        stencil rows (3-D elasticity's 81) XLA sums in windows of 32
+        (:func:`_reduce_windows`), each window left to right, then the
+        windows, every product rounded, in its jitted solves as well.  No
+        atomics: the order is fixed on every device."""
         xp = torch.cat([x, x.new_zeros((1,) + x.shape[1:])])
         xg = xp[self.cols]  # (n, m) or (n, m, k): one gather for all slots
 
@@ -125,6 +143,14 @@ class SparseELL:
             return (v if x.ndim == 1 else v[:, None]), xg[rows, k]
 
         def chain(rows=slice(None), stencil=False):
+            if not stencil and self.m > _WINDOW and x.ndim == 1:
+                y = None
+                for window in _reduce_windows(self.m):
+                    part = torch.mul(*slot(window[0], rows))
+                    for k in window[1:]:
+                        part = part + torch.mul(*slot(k, rows))
+                    y = part if y is None else y + part
+                return y
             if not fused:
                 y = torch.mul(*slot(0, rows))
                 for k in range(1, self.m):
@@ -292,9 +318,15 @@ def jacobi_equilibrate(ell: SparseELL, b: torch.Tensor):
     b' = D^{-1/2} b.  Returns (A', b', scale) with ``scale = D^{-1/2}``; the
     solution transforms back as x = scale * x'."""
     diag = ell.diagonal()
-    # rsqrt: on the CPU it rounds 1/sqrt as the JAX package's ops do (the
-    # CPU torch.sqrt may miss the correctly rounded root by one ulp)
-    scale = torch.where(diag > 0, torch.rsqrt(torch.abs(diag)), 1.0)
+    # The scale on the host, in numpy's bits, 1 / sqrt each rounded once,
+    # as the JAX package's ops round it: on every device the same bits
+    # (torch's CPU sqrt misses the correctly rounded root on 0.8 % of
+    # inputs, CUDA's rsqrt on 39 % of the islands 384^2 diagonal), for one
+    # copy of n doubles each way at setup.
+    d = diag.cpu().numpy()
+    with np.errstate(divide="ignore"):
+        s = np.where(d > 0, 1.0 / np.sqrt(np.abs(d)), 1.0)
+    scale = torch.as_tensor(s, device=diag.device)
     sp = torch.cat([scale, scale.new_zeros(1)])
     vals = ell.vals * scale[:, None] * sp[ell.cols]
     return dataclasses.replace(ell, vals=vals), b * scale, scale

@@ -25,6 +25,8 @@ staged code in the same fixed order.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -176,23 +178,20 @@ def _tree_sum(tree, factors, fused: bool = False):
     partial sum is added as one fused multiply-add, torch's ``addcmul``
     (one on the CPU, held to the JAX package's bits by
     tests/test_torch_assembly_bitwise.py, and on the card,
-    tests/test_torch_kernels.py::test_cuda_addcmul_is_a_fused_multiply_add)."""
-    def leaf(k):
-        a, b = factors(k)
+    tests/test_torch_kernels.py::test_cuda_addcmul_is_a_fused_multiply_add).
+    Plain recursion, not a nested function that calls itself: that would
+    be a reference cycle holding ``factors``, and with it the operands,
+    until the garbage collector runs."""
+    if isinstance(tree, int):
+        a, b = factors(tree)
         return a * b
-
-    def node(t):
-        if isinstance(t, int):
-            return leaf(t)
-        acc = node(t[0])
-        for u in t[1:]:
-            if fused and isinstance(u, int):
-                acc = torch.addcmul(acc, *factors(u))
-            else:
-                acc = acc + node(u)
-        return acc
-
-    return node(tree)
+    acc = _tree_sum(tree[0], factors, fused)
+    for u in tree[1:]:
+        if fused and isinstance(u, int):
+            acc = torch.addcmul(acc, *factors(u))
+        else:
+            acc = acc + _tree_sum(u, factors, fused)
+    return acc
 
 
 #: The order in which XLA's CPU backend sums each contraction of the JAX
@@ -261,29 +260,39 @@ def _contract(quad, stage: str, factors, axis: int = 1):
     return out
 
 
-def _det_inv_small(J: torch.Tensor):
+def _det_inv_small(J: torch.Tensor, slab: bool = False):
     """Closed-form determinant and inverse of batched 2x2 / 3x3 Jacobians,
     operation for operation as the JAX package forms them (adjugate over
-    determinant), so both give the same bits."""
+    determinant), so both give the same bits.  ``slab``: as in its
+    compiled slab body, where LLVM contracts each a*b - c*d into
+    fma(a, b, -(c*d)) and the determinant m00 c00 + m01 c01 + m02 c02
+    into fma(m02, c02, fma(m00, c00, m01 c01))."""
+    def cof(a, b, c, e):  # a*b - c*e
+        return torch.addcmul(-(c * e), a, b) if slab else a * b - c * e
+
     d = J.shape[-1]
     if d == 2:
         a, b = J[..., 0, 0], J[..., 0, 1]
         c, e = J[..., 1, 0], J[..., 1, 1]
-        det = a * e - b * c
+        det = cof(a, e, b, c)
         inv = torch.stack([torch.stack([e, -b], -1),
                            torch.stack([-c, a], -1)], -2) / det[..., None, None]
         return det, inv
     m = J
-    c00 = m[..., 1, 1] * m[..., 2, 2] - m[..., 1, 2] * m[..., 2, 1]
-    c01 = m[..., 1, 2] * m[..., 2, 0] - m[..., 1, 0] * m[..., 2, 2]
-    c02 = m[..., 1, 0] * m[..., 2, 1] - m[..., 1, 1] * m[..., 2, 0]
-    det = m[..., 0, 0] * c00 + m[..., 0, 1] * c01 + m[..., 0, 2] * c02
-    c10 = m[..., 0, 2] * m[..., 2, 1] - m[..., 0, 1] * m[..., 2, 2]
-    c11 = m[..., 0, 0] * m[..., 2, 2] - m[..., 0, 2] * m[..., 2, 0]
-    c12 = m[..., 0, 1] * m[..., 2, 0] - m[..., 0, 0] * m[..., 2, 1]
-    c20 = m[..., 0, 1] * m[..., 1, 2] - m[..., 0, 2] * m[..., 1, 1]
-    c21 = m[..., 0, 2] * m[..., 1, 0] - m[..., 0, 0] * m[..., 1, 2]
-    c22 = m[..., 0, 0] * m[..., 1, 1] - m[..., 0, 1] * m[..., 1, 0]
+    c00 = cof(m[..., 1, 1], m[..., 2, 2], m[..., 1, 2], m[..., 2, 1])
+    c01 = cof(m[..., 1, 2], m[..., 2, 0], m[..., 1, 0], m[..., 2, 2])
+    c02 = cof(m[..., 1, 0], m[..., 2, 1], m[..., 1, 1], m[..., 2, 0])
+    if slab:
+        det = torch.addcmul(torch.addcmul(m[..., 0, 1] * c01, m[..., 0, 0],
+                                          c00), m[..., 0, 2], c02)
+    else:
+        det = m[..., 0, 0] * c00 + m[..., 0, 1] * c01 + m[..., 0, 2] * c02
+    c10 = cof(m[..., 0, 2], m[..., 2, 1], m[..., 0, 1], m[..., 2, 2])
+    c11 = cof(m[..., 0, 0], m[..., 2, 2], m[..., 0, 2], m[..., 2, 0])
+    c12 = cof(m[..., 0, 1], m[..., 2, 0], m[..., 0, 0], m[..., 2, 1])
+    c20 = cof(m[..., 0, 1], m[..., 1, 2], m[..., 0, 2], m[..., 1, 1])
+    c21 = cof(m[..., 0, 2], m[..., 1, 0], m[..., 0, 0], m[..., 1, 2])
+    c22 = cof(m[..., 0, 0], m[..., 1, 1], m[..., 0, 1], m[..., 1, 0])
     inv = torch.stack([torch.stack([c00, c10, c20], -1),
                        torch.stack([c01, c11, c21], -1),
                        torch.stack([c02, c12, c22], -1)], -2)
@@ -296,6 +305,11 @@ def element_geometry(quad: ElementQuadrature, xe: torch.Tensor):
     xe: (n_e, nd, d) vertex coordinates.  Returns (xq (n_e, q, d) physical
     points, grads (n_e, q, nd, d) physical shape gradients, jxw (n_e, q)
     |det J| * weight), bit for bit as the JAX package on the CPU."""
+    return (_points(quad, xe),) + _gradients(quad, xe)
+
+
+def _points(quad: ElementQuadrature, xe: torch.Tensor) -> torch.Tensor:
+    """The physical quadrature points (n_e, q, d) of a batch of elements."""
     # x(q) = sum_i phi_i(q) x_i, summed in separate ops: the islands
     # coefficient jumps exactly on some quadrature points, so the last bit
     # decides which side they land on.  These orders reproduce the JAX
@@ -324,14 +338,65 @@ def element_geometry(quad: ElementQuadrature, xe: torch.Tensor):
         row = xq[:, 8].reshape(-1).clone()
         row[:full] = blocked[:full]
         xq[:, 8] = row.reshape(xq[:, 8].shape)
+    return xq
+
+
+def _gradients(quad: ElementQuadrature, xe: torch.Tensor, slab: bool = False):
+    """(grads (n_e, q, nd, d), jxw (n_e, q)) of a batch of elements;
+    ``slab``: as the JAX package's slab body forms them
+    (:func:`_det_inv_small`)."""
     dphi = quad.dphi
     J = _contract(quad, "J", lambda i: (dphi[None, :, i, None, :],
                                         xe[:, None, i, :, None]))
-    det, inv = _det_inv_small(J)  # J[e, q] = dx/dxi
+    det, inv = _det_inv_small(J, slab)  # J[e, q] = dx/dxi
     grads = _contract(quad, "grads", lambda k: (dphi[None, :, :, k, None],
                                                 inv[:, :, None, k, :]))
     jxw = torch.abs(det) * quad.weights[None, :]
-    return xq, grads, jxw
+    return grads, jxw
+
+
+def _elem_chunk(quad: ElementQuadrature, xe: torch.Tensor,
+                factor: int = 1) -> int | None:
+    """Element-batch slab size, or None to assemble in one shot, by the JAX
+    package's rule: slabs once the gradient entries n_e * q * nd * d
+    (times ``factor``, nd * d for elasticity's (e, q, i, j, c, k) terms)
+    pass twice the budget of 4M per slab.  ``DDM_ASSEMBLY_CHUNK`` sets
+    the slab size (0 or a size >= n_e: one shot)."""
+    env = os.environ.get("DDM_ASSEMBLY_CHUNK")
+    if env is not None:
+        c = int(env)
+        return None if c <= 0 or c >= xe.shape[0] else c
+    n_e, nd, d = xe.shape
+    budget = 4 << 20  # gradient entries per slab (32 MB in f64)
+    per = quad.phi.shape[0] * nd * d * factor
+    if n_e * per <= 2 * budget:
+        return None
+    return max(1024, budget // per)
+
+
+def _chunked_elements(body, args, chunk: int):
+    """``body`` (a list of slab tensors -> a tuple of (n_slab, ...)
+    tensors) over the element batch in slabs of ``chunk`` elements, the
+    outputs written into one (n_e, ...) tensor each.  ``args`` are
+    (n_e, ...) tensors or None (passed through).  As the JAX package's
+    ``lax.map``, the last slab is padded by repeating the last element,
+    whose results are sliced off."""
+    n_e = next(a for a in args if a is not None).shape[0]
+    k = -(-n_e // chunk)
+    pad = k * chunk - n_e
+    if pad:
+        args = [None if a is None else
+                torch.cat([a, a[-1:].expand((pad,) + a.shape[1:])])
+                for a in args]
+    outs = None
+    for s in range(k):
+        part = body([None if a is None else a[s * chunk:(s + 1) * chunk]
+                     for a in args])
+        if outs is None:
+            outs = [o.new_empty((k * chunk,) + o.shape[1:]) for o in part]
+        for o, p in zip(outs, part):
+            o[s * chunk:(s + 1) * chunk] = p
+    return tuple(o[:n_e] for o in outs)
 
 
 def assemble_convection_diffusion(quad: ElementQuadrature, xe: torch.Tensor,
@@ -344,11 +409,20 @@ def assemble_convection_diffusion(quad: ElementQuadrature, xe: torch.Tensor,
     ``convection_divergence_form`` takes -(u, b.grad v) in place of
     (b.grad u, v), the integrated-by-parts form that upwind DG face fluxes
     need (div b = 0, as PDELab's ConvectionDiffusionDG assumes).
+    Large batches run in slabs (:func:`_elem_chunk`): the coefficients
+    over the whole batch, the geometry and the element terms per slab.
     Returns (Ke (n_e, nd, nd), fe (n_e, nd))."""
-    xq, grads, jxw = element_geometry(quad, xe)
-    coeffs = (None if fn is None else fn(xq)
-              for fn in (alpha_fn, b_fn, c_fn, f_fn))
-    return _cd_terms(quad, grads, jxw, *coeffs, convection_divergence_form)
+    xq = _points(quad, xe)
+    coeffs = [None if fn is None else fn(xq)
+              for fn in (alpha_fn, b_fn, c_fn, f_fn)]
+
+    chunk = _elem_chunk(quad, xe)
+    if chunk is None:
+        return _cd_terms(quad, *_gradients(quad, xe), *coeffs,
+                         convection_divergence_form)
+    return _chunked_elements(
+        lambda s: _cd_terms(quad, *_gradients(quad, s[0], slab=True), *s[1:],
+                            convection_divergence_form), [xe] + coeffs, chunk)
 
 
 def _cd_terms(quad, grads, jxw, alpha, b, c, f, convection_divergence_form):
@@ -391,17 +465,26 @@ def assemble_linear_elasticity(quad: ElementQuadrature, xe: torch.Tensor,
 
     Dof order within the element: node-major, component-minor, dof (i, c)
     -> i * d + c.  ``f_fn`` maps (..., d) points to (..., d) loads (None:
-    zero load).  Returns (Ke (n_e, nd*d, nd*d), fe (n_e, nd*d))."""
-    xq, grads, jxw = element_geometry(quad, xe)
-    f = None if f_fn is None else f_fn(xq)
-    return _elasticity_terms(quad, grads, jxw, lame_lambda_fn(xq),
-                             lame_mu_fn(xq), f)
+    zero load).  Large batches run in slabs, as in
+    :func:`assemble_convection_diffusion`.  Returns (Ke (n_e, nd*d,
+    nd*d), fe (n_e, nd*d))."""
+    xq = _points(quad, xe)
+    coeffs = [lame_lambda_fn(xq), lame_mu_fn(xq),
+              None if f_fn is None else f_fn(xq)]
+    chunk = _elem_chunk(quad, xe, factor=xe.shape[1] * xe.shape[2])
+    if chunk is None:
+        return _elasticity_terms(quad, *_gradients(quad, xe), *coeffs)
+    return _chunked_elements(
+        lambda s: _elasticity_terms(quad, *_gradients(quad, s[0], slab=True),
+                                    *s[1:], slab=True), [xe] + coeffs, chunk)
 
 
-def _elasticity_terms(quad, grads, jxw, lam, mu, f):
+def _elasticity_terms(quad, grads, jxw, lam, mu, f, slab: bool = False):
     """The elasticity element terms on per-quadrature-point coefficient
     values lam, mu (n_e, q) and f (n_e, q, d) or None, formed and summed as
-    the JAX package's ``jnp.einsum`` stages are on XLA's CPU."""
+    the JAX package's ``jnp.einsum`` stages are on XLA's CPU.  ``slab``:
+    as its ``lax.map`` body, one compiled program in which XLA fuses the
+    sum of the strain term's two products into a fused multiply-add."""
     n_e, nq, nd, d = grads.shape
     # for u = phi_j e_c, v = phi_i e_k:
     #   eps(u):eps(v) = 0.5 (delta_ck grad phi_i . grad phi_j
@@ -413,7 +496,10 @@ def _elasticity_terms(quad, grads, jxw, lam, mu, f):
     eye = torch.eye(d, dtype=grads.dtype, device=grads.device)
     gi = grads[:, :, :, None, :, None]  # d_c phi_i
     gj = grads[:, :, None, :, None, :]  # d_k phi_j
-    eps_term = 0.5 * (gg[..., None, None] * eye + gi * gj)
+    if slab:
+        eps_term = 0.5 * torch.addcmul(gg[..., None, None] * eye, gi, gj)
+    else:
+        eps_term = 0.5 * (gg[..., None, None] * eye + gi * gj)
     div_term = grads[:, :, None, :, :, None] * grads[:, :, :, None, None, :]
     mu2, lamw = jxw * 2 * mu, jxw * lam
     Kfull = (_contract(quad, "Kel", lambda q: (

@@ -82,7 +82,12 @@ def _build(name):
 
 def _stages(name):
     """{stage: (JAX array, port array)} of one case."""
-    dj, dt = _build(name)
+    return system_stages(*_build(name))
+
+
+def system_stages(dj, dt):
+    """{stage: (JAX array, port array)} of the JAX package's
+    discretization ``dj`` and the port's ``dt`` of the same problem."""
     out = {}
     _, gj, wj = jassemble.element_geometry(dj.quad, dj.xe)
     _, gt, wt = tassemble.element_geometry(dt.quad, dt.xe)

@@ -120,6 +120,24 @@ def _jax_problem(path):
                               parts=parts)
 
 
+def _jax_unverified(p, M):
+    """The JAX package's solve of ``p`` under ``M``, unverified: to the
+    Givens estimate's first hit.  Its ``solve_from_config`` passes
+    ``solver.verify`` on as the string the parameter tree holds, and the
+    string ``"False"`` verifies, so the loop is called with
+    ``verify=False`` itself."""
+    import jax.numpy as jnp
+
+    from ddm_tpu.solvers import krylov
+
+    sub = p.ptree.sub("solver")
+    return krylov.SOLVERS[sub.get("type")](
+        krylov.operator_of(p.A), krylov.prec_of(M), p.rhs,
+        jnp.zeros_like(p.rhs), reduction=sub.get("reduction", 1e-8),
+        maxit=sub.get("maxit", 1000), restart=sub.get("restart", 30),
+        verify=False)
+
+
 def _jax_path(path):
     import jax.numpy as jnp
 
@@ -135,8 +153,7 @@ def _jax_path(path):
                      / jnp.linalg.norm(p.rhs))
     # the iteration at which the Givens estimate first meets the target:
     # the same solve, unverified (the port's KrylovResult.estimate_hit)
-    p.ptree["solver.verify"] = False
-    hit = int(japi.solve(p, M).iterations)
+    hit = int(_jax_unverified(p, M).iterations)
     return dict(iterations=int(res.iterations), converged=bool(res.converged),
                 true_res=true_res, estimate_hit=hit,
                 verified_at_hit=chip_smoke.verified_at(japi, p, M, hit),
@@ -366,8 +383,11 @@ def run_swap(side, path, out_dir):
     mine = os.path.join(out_dir, f"{side}.npz")
     out = {}
     if not os.path.exists(mine):
-        p.ptree["solver.verify"] = False
-        res = api.solve(p, M)
+        if side == "jax":
+            res = _jax_unverified(p, M)
+        else:
+            p.ptree["solver.verify"] = False
+            res = api.solve(p, M)
         hit = int(res.iterations)
         r = p.rhs - mv(p.A, res.x)
         np.savez(mine, A=p.disc.pattern.to_scipy(p.A).sorted_indices().data,
@@ -384,8 +404,152 @@ def run_swap(side, path, out_dir):
     return out
 
 
+# -- the assembled system at full size, stage by stage ----------------------
+
+# path -> (cells, box upper corner, problem, n_comp): the slab-wise
+# assembly's paths (tests/test_torch_assembly_slabs.py), the bar with the
+# example's scripted coefficients
+SYSTEM_PATHS = {
+    "elast_f64": ((256, 256), (3.0, 1.0), "steel_rubber_2d", 2),
+    "hex_ov1_f64": ((56, 56, 56), None, "islands", 1),
+    "elast3d_f64": ((80, 8, 12), (10.0, 1.0, 1.5), "elasticity", 3),
+}
+
+
+def run_system(path):
+    """Both packages' assembled systems of ``path`` at full size in one
+    process (A of a few hundred MB each): per stage of
+    ``tests/test_torch_assembly_bitwise.py:system_stages``, the number of
+    entries that differ, the entries and the largest relative difference."""
+    import numpy as np
+
+    _jax()
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from test_torch_assembly_bitwise import _np, system_stages
+
+    from ddm_tpu.fem import problems as jproblems
+    from ddm_tpu.fem.discretize import Discretization as JDiscretization
+    from ddm_tpu.fem.grids import structured_grid as j_grid
+    from ddm_tpu.fem.scripted import load_elasticity_problem as j_load
+    from ddm_tpu_torch.fem import problems as tproblems
+    from ddm_tpu_torch.fem.discretize import Discretization as TDiscretization
+    from ddm_tpu_torch.fem.grids import structured_grid as t_grid
+    from ddm_tpu_torch.fem.scripted import load_elasticity_problem as t_load
+
+    cells, upper, prob, n_comp = SYSTEM_PATHS[path]
+    lower = (0.0,) * len(cells) if upper else None
+    if prob == "elasticity":
+        pj = j_load(os.path.join(JAX_EXAMPLES, "coefficients",
+                                 "elasticity_coefficient.py"))
+        pt = t_load(chip_smoke.COEFF["elasticity"])
+    else:
+        pj, pt = getattr(jproblems, prob)(), getattr(tproblems, prob)()
+    dj = JDiscretization(j_grid(cells, lower, upper), pj, n_comp=n_comp)
+    dt = TDiscretization(t_grid(cells, lower, upper), pt, "cpu",
+                         n_comp=n_comp)
+    out = {}
+    for stage, (a, b) in system_stages(dj, dt).items():
+        a, b = _np(a), _np(b)
+        out[stage] = [int((a != b).sum()), int(a.size), float(
+            np.abs(a - b).max() / max(np.abs(a).max(), 1e-300))]
+    return out
+
+
+# -- which stage sets the Givens hit: each Krylov loop on each package's
+# operator and preconditioner -----------------------------------------------
+
+# path -> the sizes at which the table is taken, the smallest first:
+# (cells per axis, parts)
+LOOP_SIZES = {"geneo_f64": [(192, (12, 12)), (256, (16, 16)),
+                            (384, (16, 16))],
+              "elast_f64": [(256, (16, 16))]}
+
+
+def run_loops(path, size, parts):
+    """The JAX package's Krylov loop (``gmres_solve`` or ``fgmres_solve``)
+    and the port's (``_restarted_gmres``), each on the JAX package's
+    operator and preconditioner and on the port's, unverified to the
+    Givens estimate's first hit, in one process at ``size`` / ``parts``.
+    Each loop is called with ``verify=False`` itself: the JAX package's
+    ``solve_from_config`` passes ``solver.verify`` on as the string the
+    parameter tree holds, and the string ``"False"`` verifies.  The JAX loop reaches the port's operator and
+    preconditioner through ``jax.pure_callback``, the port's loop the JAX
+    package's through their jitted calls (numpy to torch CPU tensors).
+    Per cell: the hit, and the verified defect there over the target, read
+    by the JAX package's M and by the port's (left GMRES: ||M (b - A x)||
+    / (reduction ||M b||); flexible GMRES: the true residual, which no M
+    reads)."""
+    import numpy as np
+
+    _jax()
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    import ddm_tpu.api as japi
+    from ddm_tpu.solvers import krylov as jkrylov
+    from ddm_tpu_torch import api as tapi
+    from ddm_tpu_torch.solvers import krylov as tkrylov
+
+    kind = chip_smoke.PATHS[path][0]
+    chip_smoke.FULL[kind] = (size, parts)
+    pj = _jax_problem(path)
+    Mj = japi.build_preconditioner(pj)
+    pt = chip_smoke.path_problem(tapi, path, size, parts, torch.device("cpu"))
+    Mt = tapi.build_preconditioner(pt)
+    assert np.array_equal(np.asarray(pj.rhs), pt.rhs.numpy())
+    ptree = pt.ptree
+    red = ptree.get("solver.reduction", 1e-8)
+    flexible = "flexible" in ptree.get("solver.type")
+    loop_args = dict(reduction=red, maxit=1000,
+                     restart=ptree.get("solver.restart", 30), verify=False)
+    j_loop = jkrylov.fgmres_solve if flexible else jkrylov.gmres_solve
+    t_loop = tkrylov.fgmres_solve if flexible else tkrylov.gmres_solve
+
+    j_mv = jax.jit(lambda x: pj.A.mv(x))
+    j_apply = jax.jit(lambda d: Mj.apply(d))
+
+    def port(fn):  # a port call on numpy, for the JAX side
+        return lambda x: fn(torch.from_numpy(np.array(x))).numpy()
+
+    def jaxed(fn):  # a jitted JAX call on torch CPU tensors
+        return lambda x: torch.from_numpy(np.array(fn(jnp.asarray(x.numpy()))))
+
+    def callback(fn):
+        return jax.tree_util.Partial(lambda x: jax.pure_callback(
+            fn, jax.ShapeDtypeStruct(x.shape, x.dtype), x))
+
+    ops = {"jax": (jkrylov.operator_of(pj.A), jkrylov.prec_of(Mj),
+                   jaxed(j_mv), jaxed(j_apply)),
+           "port": (callback(port(pt.A.mv)), callback(port(Mt.apply)),
+                    pt.A.mv, Mt.apply)}
+    b = pt.rhs
+
+    def defect(x, M):
+        r = b - pt.A.mv(x)
+        if flexible:
+            return float(torch.linalg.norm(r) / (red * torch.linalg.norm(b)))
+        return float(torch.linalg.norm(M(r)) / (red * torch.linalg.norm(M(b))))
+
+    table = {}
+    for loop in ("jax", "port"):
+        for owner, (jop, jprec, top, tprec) in ops.items():
+            if loop == "jax":
+                res = j_loop(jop, jprec, pj.rhs, jnp.zeros_like(pj.rhs),
+                             **loop_args)
+                hit, x = int(res.iterations), torch.from_numpy(
+                    np.array(res.x))
+            else:
+                res = t_loop(top, tprec, b, torch.zeros_like(b), **loop_args)
+                hit, x = res.estimate_hit, res.x
+            table[f"{loop} loop, {owner} A and M"] = dict(
+                hit=hit, by_jax_M=defect(x, ops["jax"][3]),
+                by_port_M=defect(x, Mt.apply))
+    return dict(size=size, parts=list(parts), flexible=flexible, table=table)
+
+
 # side -> runner; the "-inverse" sides build explicit f64 inverses
-RUNNERS = {"jax": run_jax, "port": run_port,
+RUNNERS = {"jax": run_jax, "port": run_port, "system": run_system,
            "jax-inverse": lambda path: run_jax(path, inverse=True),
            "port-inverse": lambda path: run_port(path, inverse=True)}
 
@@ -434,6 +598,37 @@ def test_fullsize_port_matches_jax(path):
 
 
 @pytest.mark.slow
+@pytest.mark.parametrize("path", list(SYSTEM_PATHS))
+def test_fullsize_slab_assembly_is_bit_equal(path):
+    """Every stage of the assembled system of the paths whose element
+    batches both packages assemble in slabs, bit-equal at full size."""
+    out = run_side("system", path)
+    print(f"{path}: {out}")
+    assert not any(n for n, _, _ in out.values()), out
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("path,size", [(path, size) for path, sizes in
+                                       LOOP_SIZES.items()
+                                       for size, _ in sizes])
+def test_fullsize_loops_table(path, size):
+    """The 2 x 2 table of each Krylov loop on each package's operator and
+    preconditioner (PERF.md section 2): every cell's Givens estimate meets
+    the target at the same iteration, with a finite verified defect
+    there."""
+    import math
+
+    out = run_side("loops", path, str(size))
+    print(f"{path} {size}: {json.dumps(out)}")
+    assert len(out["table"]) == 4
+    assert len({cell["hit"] for cell in out["table"].values()}) == 1, out
+    for cell in out["table"].values():
+        assert cell["hit"] > 0
+        assert math.isfinite(cell["by_jax_M"])
+        assert math.isfinite(cell["by_port_M"])
+
+
+@pytest.mark.slow
 def test_fullsize_system_is_bit_equal_and_residuals_swap(tmp_path):
     """At msgfem_ring_f64, islands 192^2 / 144: the equilibrated A and b of
     the two packages bit-equal; each side's verified defect at its Givens
@@ -455,7 +650,10 @@ def test_fullsize_system_is_bit_equal_and_residuals_swap(tmp_path):
 
 if __name__ == "__main__":
     side, name = sys.argv[1:3]
-    if side.endswith("-swap"):
+    if side == "loops":
+        size = int(sys.argv[3])
+        out = run_loops(name, size, dict(LOOP_SIZES[name])[size])
+    elif side.endswith("-swap"):
         out = run_swap(side[:-len("-swap")], name, sys.argv[3])
     else:
         out = RUNNERS[side](name)
